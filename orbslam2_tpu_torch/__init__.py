@@ -1,0 +1,25 @@
+"""orbslam2_tpu_torch — the PyTorch/CUDA port of ``orbslam2_tpu``.
+
+The JAX package is the reference; this package mirrors its module paths and
+public names (``ops/``, ``solvers/``, ``models/``, ``utils/``) so each
+function has a counterpart of the same name.  It imports torch and numpy,
+never jax.  The kernels that the JAX package wrote in Pallas are CUDA C++
+sources under ``csrc/``, built and bound by ``kernels.py``; every wrapper
+launches its kernel for a CUDA tensor and takes its plain PyTorch version
+for a CPU tensor.
+
+Ported so far: RGB-D tracking with keyframe insertion (local mapping, loop
+closing and relocalization are not ported yet; see ROADMAP.md).
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry (Lie ops, pose optimization normal equations, the pyramid
+# resampling matmuls) needs true f32 products, as the reference's
+# ``jax_default_matmul_precision="highest"``: no TF32 in cuBLAS or cuDNN.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .config import Settings, OrbSettings, CameraSettings, TpuSettings  # noqa: E402,F401

@@ -1,0 +1,601 @@
+"""Tracking: the per-frame front end (RGB-D).
+
+Port of ``orbslam2_tpu/models/tracking.py`` for the RGB-D slice
+(``Tracking``, src/Tracking.cc).  The device functions keep the reference's
+names and fixed shapes:
+
+  track_motion_model    SearchByProjection(cur, last) + PoseOptimization
+                        (Tracking::TrackWithMotionModel, Tracking.cc:≈860)
+  track_reference_keyframe  matching vs the reference KF + PoseOptimization
+                        (Tracking::TrackReferenceKeyFrame, ≈770)
+  gather_local_points / track_local_map
+                        Tracking::UpdateLocalKeyFrames/Points +
+                        SearchLocalPoints (≈930-1300)
+  insert_keyframe / add_points / unproject_frame_depth
+                        keyframe insertion and depth-spawned points
+
+The host ``Tracker`` runs the state machine.  Initialization builds the
+first keyframe from depth (StereoInitialization, ≈500); every later frame
+goes through ``track_fused._fused_track``.  Local mapping, loop closing,
+relocalization and the chunked/pipelined trackers are not ported yet.
+
+Repeated scatter targets are resolved as the reference's CPU run resolves
+them (the highest source row wins), through ``map_state.scatter_last``.
+Every ``top_k`` is a stable descending sort (lower index first on ties).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Settings
+from ..ops import matcher
+from ..ops import pyramid as pyr_ops
+from ..ops.extractor import OrbExtractor
+from ..ops.hamming import TH_HIGH, TH_LOW, match_descriptors, rotation_consistency
+from ..ops.select import topk_stable
+from ..solvers.lie import se3_apply, se3_inverse
+from ..solvers.pose_opt import PoseObs, pose_optimization
+from ..utils.camera import CameraModel, in_image
+from . import map_state as ms
+from .frame import Frame, build_rgbd_frame
+
+NO_POINT = ms.NO_POINT
+
+
+# ---------------------------------------------------------------------------
+# Device tracking steps
+# ---------------------------------------------------------------------------
+
+
+def _pose_obs_from_bindings(
+    m: ms.MapState, frame: Frame, bindings: torch.Tensor, inv_sigma2_lut: torch.Tensor
+) -> PoseObs:
+    """PoseObs for all frame slots bound to a map point."""
+    bound = bindings >= 0
+    pid = torch.where(bound, bindings, 0).long()
+    lvl = torch.clamp(frame.level, 0, inv_sigma2_lut.shape[0] - 1).long()
+    return PoseObs(
+        points_w=m.pt_pos[pid],
+        uv=frame.xy,
+        ur=frame.ur,
+        inv_sigma2=inv_sigma2_lut[lvl],
+        valid=bound & frame.valid & m.pt_valid[pid],
+    )
+
+
+def _project(cam: CameraModel, p_c: torch.Tensor) -> torch.Tensor:
+    z = torch.clamp(p_c[:, 2], min=1e-6)
+    return torch.stack(
+        [cam.fx * p_c[:, 0] / z + cam.cx, cam.fy * p_c[:, 1] / z + cam.cy], -1
+    )
+
+
+def _bind(n: int, ok: torch.Tensor, idx: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
+    """Frame-slot bindings from match results: ``full(n, NO_POINT)
+    .at[where(ok, idx, 0)].set(where(ok, pid, NO_POINT))`` with the
+    reference's last-writer rule (rows that did not match write NO_POINT
+    into slot 0, as in the reference)."""
+    base = torch.full((n,), NO_POINT, dtype=torch.int32, device=ok.device)
+    tgt = torch.where(ok, idx, 0)
+    return ms.scatter_last(base, tgt, torch.where(ok, pid, NO_POINT).to(torch.int32))
+
+
+def track_motion_model(
+    m: ms.MapState,
+    frame: Frame,
+    T_pred: torch.Tensor,
+    last_xy: torch.Tensor,
+    last_bindings: torch.Tensor,
+    last_level: torch.Tensor,
+    cam: CameraModel,
+    scale_factors: torch.Tensor,
+    inv_sigma2_lut: torch.Tensor,
+    radius: float,
+    T_last: torch.Tensor,
+    last_angle: torch.Tensor,
+    baseline: float,
+):
+    """Project the last frame's map points with the predicted pose, match
+    in a window, optimize the pose.
+
+    The reference also matches temporary visual-odometry sources here
+    (Tracking::UpdateLastFrame, src/Tracking.cc:≈810) behind a
+    localization-only flag; that mode is not ported yet, and with the flag
+    off the reference computes exactly this.
+
+    Returns (T, bindings, n_inliers_map, n_matches, n_inliers_total).
+    """
+    bound = last_bindings >= 0
+    pid = torch.where(bound, last_bindings, 0).long()
+    is_map = bound & m.pt_valid[pid]
+
+    p_c = se3_apply(T_pred, m.pt_pos[pid])
+    uv = _project(cam, p_c)
+    valid_src = is_map & (p_c[:, 2] > 0.1) & in_image(cam, uv)
+
+    # Depth-direction octave gate (ORBmatcher.cc:≈1180), stereo/RGB-D only:
+    # forward motion searches higher octaves, backward motion lower ones.
+    tz = (T_pred @ se3_inverse(T_last))[2, 3]
+    one = torch.ones((), dtype=torch.int32, device=tz.device)
+    level_dir = torch.where(tz > baseline, one, torch.where(-tz > baseline, -one, 0 * one))
+    mres = matcher.search_by_projection(
+        uv, last_level, m.pt_desc[pid], valid_src, frame.features,
+        scale_factors, radius=radius, max_dist=TH_HIGH, ratio=0.9,
+        level_dir=level_dir,
+    )
+    # Rotation-consistency histogram (ComputeThreeMaxima, ≈1600).
+    mres = mres._replace(ok=rotation_consistency(last_angle, frame.angle, mres.idx, mres.ok))
+
+    bindings = _bind(frame.xy.shape[0], mres.ok, mres.idx, pid)
+    obs = _pose_obs_from_bindings(m, frame, bindings, inv_sigma2_lut)
+    n_matches = obs.valid.sum()
+    res = pose_optimization(T_pred, obs, cam)
+    n_map = (res.inlier & (bindings >= 0)).sum()
+    bindings = torch.where(res.inlier, bindings, NO_POINT)
+    return res.T_cw, bindings, n_map, n_matches, res.n_inliers
+
+
+def track_reference_keyframe(
+    m: ms.MapState,
+    frame: Frame,
+    ref_kf: int,
+    T_init: torch.Tensor,
+    inv_sigma2_lut: torch.Tensor,
+    cam: CameraModel,
+):
+    """Match the frame against the reference keyframe's bound descriptors
+    (cross-checked, ratio 0.7), then optimize.  Dense matching stands in for
+    SearchByBoW, as in the reference package."""
+    kf_pts = m.kf_point[ref_kf]
+    kf_has_pt = (kf_pts >= 0) & m.kf_kp_valid[ref_kf]
+    pid = torch.where(kf_has_pt, kf_pts, 0).long()
+    src_valid = kf_has_pt & m.pt_valid[pid]
+
+    mres = match_descriptors(
+        m.kf_desc[ref_kf], src_valid, frame.desc, frame.valid,
+        max_dist=TH_LOW, ratio=0.7, cross_check=True,
+    )
+    bindings = _bind(frame.xy.shape[0], mres.ok, mres.idx, pid)
+    obs = _pose_obs_from_bindings(m, frame, bindings, inv_sigma2_lut)
+    n_matches = obs.valid.sum()
+    res = pose_optimization(T_init, obs, cam)
+    bindings = torch.where(res.inlier, bindings, NO_POINT)
+    return res.T_cw, bindings, res.n_inliers, n_matches
+
+
+def gather_local_points(
+    m: ms.MapState, bindings: torch.Tensor, n_local: int = 4096,
+    n_local_kfs: int = 80,
+):
+    """Local map = points seen by the keyframes sharing the most points
+    with the frame (K1, ~60% of the cap) plus the keyframes most covisible
+    with that group (K2) — Tracking::UpdateLocalKeyFrames/Points
+    (Tracking.cc:≈1190-1300).  Returns (pt_ids (n_local,) int32,
+    valid (n_local,) bool)."""
+    P, K = m.pt_capacity, m.kf_capacity
+    n_local = min(n_local, P)
+    n_local_kfs = min(n_local_kfs, K)
+    n_k1 = max(1, (n_local_kfs * 3) // 5)
+    n_k2 = n_local_kfs - n_k1
+    bound = bindings >= 0
+    in_frame = ms.scatter_max(P, torch.where(bound, bindings, P), bound.to(torch.int32)) > 0
+    obs_ok = (m.kf_point >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    pts_all = torch.where(obs_ok, m.kf_point, 0).long()
+    votes = (in_frame[pts_all] & obs_ok).sum(1).to(torch.float32)
+    _, local_kfs = topk_stable(votes, n_k1)
+    k1_hit = votes[local_kfs] > 0
+
+    def union_points(kf_ids, ok_rows):
+        sel_pts = m.kf_point[kf_ids]
+        sel_ok = (
+            (sel_pts >= 0) & m.kf_kp_valid[kf_ids]
+            & m.kf_valid[kf_ids][:, None] & ok_rows[:, None]
+        )
+        return ms.scatter_max(P, torch.where(sel_ok, sel_pts, P), 1) > 0
+
+    seen = union_points(local_kfs, k1_hit)
+    if n_k2 > 0:
+        in_k1 = ms.scatter_max(K, local_kfs, k1_hit.to(torch.int32)) > 0
+        votes2 = (seen[pts_all] & obs_ok).sum(1).to(torch.float32)
+        votes2 = torch.where(in_k1, -1.0, votes2)
+        v2, k2_kfs = topk_stable(votes2, n_k2)
+        seen = seen | union_points(k2_kfs, v2 > 0)
+    seen = seen & m.pt_valid
+    _, pt_ids = topk_stable(seen.to(torch.float32), n_local)
+    return pt_ids.to(torch.int32), seen[pt_ids]
+
+
+def track_local_map(
+    m: ms.MapState,
+    frame: Frame,
+    T: torch.Tensor,
+    bindings: torch.Tensor,
+    local_ids: torch.Tensor,
+    local_valid: torch.Tensor,
+    cam: CameraModel,
+    scale_factors: torch.Tensor,
+    inv_sigma2_lut: torch.Tensor,
+    radius_mult: float = 1.0,
+):
+    """SearchLocalPoints + the final pose optimization (Tracking.cc:≈930-
+    1180), with Frame::isInFrustum per local point (positive depth, in
+    image, distance within [0.8 min, 1.2 max], viewing angle < 60 deg).
+    Returns (T, bindings, n_inliers, map with visibility statistics)."""
+    ids = local_ids.long()
+    p_w = m.pt_pos[ids]
+    p_c = se3_apply(T, p_w)
+    zok = p_c[:, 2] > 0.1
+    uv = _project(cam, p_c)
+    O_w = -(T[:3, :3].T @ T[:3, 3])
+    po = p_w - O_w
+    dist = torch.linalg.norm(po, dim=-1)
+    dist_ok = (dist >= 0.8 * m.pt_min_dist[ids]) & (dist <= 1.2 * m.pt_max_dist[ids])
+    view_cos = (po * m.pt_normal[ids]).sum(-1) / torch.clamp(dist, min=1e-9)
+    # Already-bound points are not searched again (mnLastFrameSeen).
+    bound = bindings >= 0
+    already = ms.scatter_last(
+        torch.zeros(m.pt_capacity, dtype=torch.bool, device=bound.device),
+        torch.where(bound, bindings, 0), bound,
+    )
+    vis = local_valid & zok & in_image(cam, uv) & dist_ok & (view_cos > 0.5) & ~already[ids]
+
+    pred_level = ms.predict_scale(dist, m.pt_max_dist[ids], scale_factors)
+    # 2.5 px if viewed head-on (cos > 0.998) else 4.0, times the octave scale.
+    r = torch.where(view_cos > 0.998, 2.5, 4.0) * radius_mult
+    rr = (r * scale_factors[pred_level]) ** 2
+    mres = matcher.projection_match(
+        uv, rr, pred_level, m.pt_desc[ids], vis,
+        frame.xy, frame.level, frame.desc, frame.valid,
+        level_band=1, max_dist=TH_HIGH, ratio=0.8,
+    )
+    incoming = _bind(bindings.shape[0], mres.ok, mres.idx, local_ids)
+    new_bindings = torch.where((bindings < 0) & (incoming >= 0), incoming, bindings)
+
+    obs = _pose_obs_from_bindings(m, frame, new_bindings, inv_sigma2_lut)
+    res = pose_optimization(T, obs, cam)
+    new_bindings = torch.where(res.inlier, new_bindings, NO_POINT)
+
+    # Visibility statistics for point culling (IncreaseVisible/Found).
+    pt_visible = m.pt_visible.index_add(0, torch.where(vis, ids, 0), vis.to(torch.int32))
+    found = new_bindings >= 0
+    pt_found = m.pt_found.index_add(
+        0, torch.where(found, new_bindings, 0).long(), found.to(torch.int32)
+    )
+    return res.T_cw, new_bindings, res.n_inliers, m._replace(pt_visible=pt_visible, pt_found=pt_found)
+
+
+# ---------------------------------------------------------------------------
+# Keyframe insertion and map growth
+# ---------------------------------------------------------------------------
+
+
+def _set_row(arr: torch.Tensor, k: torch.Tensor, value) -> torch.Tensor:
+    """``arr.at[k].set(value)`` for a 0-d index tensor, out of place."""
+    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    return arr.index_put((k.view(1).long(),), value.expand(arr.shape[1:])[None])
+
+
+def insert_keyframe(
+    m: ms.MapState,
+    frame: Frame,
+    T_cw: torch.Tensor,
+    frame_id: int,
+    bindings: torch.Tensor,
+    parent: int,
+) -> Tuple[ms.MapState, torch.Tensor]:
+    """Append the frame as keyframe row n_kf (Tracking::CreateNewKeyFrame
+    plus the binding half of LocalMapping::ProcessNewKeyFrame).  Returns
+    (map, kf_id as a 0-d tensor)."""
+    k = m.n_kf
+    m = m._replace(
+        kf_pose_cw=_set_row(m.kf_pose_cw, k, T_cw),
+        kf_xy=_set_row(m.kf_xy, k, frame.xy),
+        kf_level=_set_row(m.kf_level, k, frame.level),
+        kf_angle=_set_row(m.kf_angle, k, frame.angle),
+        kf_desc=_set_row(m.kf_desc, k, frame.desc),
+        kf_ur=_set_row(m.kf_ur, k, frame.ur),
+        kf_kp_valid=_set_row(m.kf_kp_valid, k, frame.valid),
+        kf_point=_set_row(m.kf_point, k, torch.where(frame.valid, bindings, NO_POINT)),
+        kf_valid=_set_row(m.kf_valid, k, True),
+        kf_frame_id=_set_row(m.kf_frame_id, k, frame_id),
+        kf_parent=_set_row(m.kf_parent, k, parent),
+        n_kf=k + 1,
+    )
+    return m, k
+
+
+def add_points(
+    m: ms.MapState,
+    pos: torch.Tensor,        # (M, 3) world positions
+    desc: torch.Tensor,       # (M, 8)
+    good: torch.Tensor,       # (M,) which rows are real new points
+    ref_kf,                   # keyframe id (int or 0-d tensor)
+    reverse: bool = False,
+) -> Tuple[ms.MapState, torch.Tensor]:
+    """Insert up to M points into free pool slots, lowest index first (or
+    highest with ``reverse``, the tracker's side of the free list).
+    Returns (map, ids (M,) with -1 where not added)."""
+    M = pos.shape[0]
+    P = m.pt_capacity
+    dev = pos.device
+    order = torch.argsort((~good).to(torch.int32), stable=True)  # good first
+    pos_s, desc_s, good_s = pos[order], desc[order], good[order]
+    n_new = good.sum().to(torch.int32)
+    idx_bias = torch.arange(P, dtype=torch.float32, device=dev) * (1.0 / P)
+    free_score = torch.where(m.pt_valid, -1.0, 1.0) + (idx_bias if reverse else -idx_bias)
+    _, slot = topk_stable(free_score, M)
+    write = good_s & ~m.pt_valid[slot]
+    ref = torch.as_tensor(ref_kf, dtype=torch.int32, device=dev)
+
+    def put(arr, new):
+        w = write.view((-1,) + (1,) * (arr.dim() - 1))
+        return arr.index_put((slot,), torch.where(w, new, arr[slot]))
+
+    m = m._replace(
+        pt_pos=put(m.pt_pos, pos_s),
+        pt_desc=put(m.pt_desc, desc_s),
+        pt_ref_kf=put(m.pt_ref_kf, ref.expand(M)),
+        pt_first_kf=put(m.pt_first_kf, ref.expand(M)),
+        pt_valid=put(m.pt_valid, torch.ones_like(write)),
+        pt_visible=put(m.pt_visible, torch.ones_like(m.pt_visible[slot])),
+        pt_found=put(m.pt_found, torch.ones_like(m.pt_found[slot])),
+        n_pt=torch.clamp(m.n_pt + n_new, max=P),
+    )
+    ids_sorted = torch.where(write, slot.to(torch.int32), NO_POINT)
+    return m, ids_sorted[torch.argsort(order)]
+
+
+def unproject_frame_depth(
+    frame: Frame, T_cw: torch.Tensor, cam: CameraModel
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World positions for keypoints with valid depth (StereoInitialization
+    and CreateNewKeyFrame's close-point spawning, Tracking.cc:≈500/≈1060)."""
+    z = frame.depth
+    ok = (z > 0) & frame.valid
+    x = (frame.xy[:, 0] - cam.cx) / cam.fx * z
+    y = (frame.xy[:, 1] - cam.cy) / cam.fy * z
+    return se3_apply(se3_inverse(T_cw), torch.stack([x, y, z], -1)), ok
+
+
+# ---------------------------------------------------------------------------
+# Host-side tracker (the state machine)
+# ---------------------------------------------------------------------------
+
+
+class TrackState:
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+
+_PATHS = {0: "none", 1: "motion", 2: "refkf"}
+
+
+class Tracker:
+    """Host orchestrator for per-frame RGB-D tracking: motion model
+    (mVelocity), last frame, reference keyframe, and the relative-pose log
+    for trajectory export (mlRelativeFramePoses, Tracking.cc:≈480).
+
+    ``metrics["host_syncs"]`` counts the device-to-host reads tracking
+    made (each one waits for the device when the tensors are on a GPU).
+    """
+
+    def __init__(self, settings: Settings, local_mapper=None, database=None,
+                 loop_closer=None, device="cpu"):
+        for name, value, item in (
+            ("local_mapper", local_mapper, 9),
+            ("database", database, 14),
+            ("loop_closer", loop_closer, 15),
+        ):
+            if value is not None:
+                raise NotImplementedError(
+                    f"Tracker({name}=...) is not ported yet (ROADMAP Queue 1 item {item})"
+                )
+        self.settings = settings
+        self.device = torch.device(device)
+        self.cam = settings.camera_model()
+        orb = settings.orb
+        self.extractor = OrbExtractor(orb, settings.tpu, device=self.device)
+        self.scale_factors = torch.from_numpy(
+            pyr_ops.scale_factors(orb.n_levels, orb.scale_factor)
+        ).to(self.device)
+        self.inv_sigma2 = torch.from_numpy(
+            (1.0 / pyr_ops.level_sigma2(orb.n_levels, orb.scale_factor)).astype(np.float32)
+        ).to(self.device)
+        self.map = ms.make_empty_map(
+            settings.tpu.max_keyframes, settings.tpu.max_points,
+            settings.tpu.max_keypoints, device=self.device,
+        )
+        self.state = TrackState.NOT_INITIALIZED
+        self.frame_id = 0
+        self.last_frame: Optional[Frame] = None
+        self.last_T = torch.eye(4, device=self.device)
+        self.last_bindings: Optional[torch.Tensor] = None
+        self.velocity: Optional[torch.Tensor] = None
+        self.ref_kf = 0
+        self.last_kf_frame_id = 0
+        # Trajectory: (frame_id, T_cr 4x4, ref_kf, is_lost) per frame.
+        self.trajectory = []
+        self.n_tracked_history = []
+        self.metrics = {
+            "frames": 0,
+            "frames_lost": 0,
+            "relocalizations": 0,
+            "keyframes_created": 0,
+            "last_inliers": 0,
+            "track_path": "",  # motion | refkf | none
+            "host_syncs": 0,
+        }
+
+    def _host(self, x: torch.Tensor):
+        """Read a device tensor on the host (counted)."""
+        self.metrics["host_syncs"] += 1
+        return x.tolist()
+
+    # -- frame entry point -------------------------------------------------
+
+    def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
+        """Track one RGB-D frame; returns the current pose (world->camera)."""
+        frame = build_rgbd_frame(
+            torch.as_tensor(image, dtype=torch.float32, device=self.device),
+            torch.as_tensor(depth_map, dtype=torch.float32, device=self.device),
+            self.extractor, self.cam, self.settings.camera.depth_map_factor,
+        )
+        if self.state == TrackState.NOT_INITIALIZED:
+            self._track(frame)
+        else:
+            self._track_fused(frame)
+        return self.last_T
+
+    def _track(self, frame: Frame):
+        """Initialization branch of Tracking::Track (the only one reached:
+        initialized frames take the fused path)."""
+        self._stereo_initialize(frame)
+        self._log_pose()
+        self._finish_frame(frame)
+
+    # -- fused per-frame path ------------------------------------------------
+
+    def _make_ctx(self):
+        from .track_fused import TrackCtx
+
+        has_vel = self.velocity is not None
+        lf = self.last_frame
+        return TrackCtx(
+            T_last=self.last_T,
+            velocity=self.velocity if has_vel else torch.eye(4, device=self.device),
+            has_velocity=has_vel,
+            last_xy=lf.xy,
+            last_level=lf.level,
+            last_bindings=self.last_bindings,
+            ref_kf=self.ref_kf,
+            weak=len(self.n_tracked_history) == 0 or self.n_tracked_history[-1] < 50,
+            frames_since_kf=self.frame_id - self.last_kf_frame_id,
+            last_angle=lf.angle,
+        )
+
+    def _track_fused(self, frame: Frame):
+        from .track_fused import (
+            FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH, _fused_track,
+        )
+
+        tpu = self.settings.tpu
+        out = _fused_track(
+            self.map, frame, self._make_ctx(), self.cam, self.scale_factors,
+            self.inv_sigma2, self._th_depth(),
+            local_window=tpu.local_window, kf_max_gap=tpu.kf_max_gap,
+            kf_busy_frames=tpu.kf_busy_frames,
+        )
+        self.metrics["host_syncs"] += out.host_syncs
+        self.map = out.m
+        flags = self._host(out.flags)  # the per-frame decision readback
+        ok = bool(flags[FLAG_OK])
+        n_in = int(flags[FLAG_N_INLIERS])
+        need_kf = bool(flags[FLAG_NEED_KF])
+        path = int(flags[FLAG_PATH])
+
+        self.metrics["frames"] += 1
+        self.metrics["track_path"] = _PATHS[path]
+        created = False
+        if ok:
+            self.state = TrackState.OK
+            self.velocity = out.velocity
+            self.last_T = out.T_cw
+            self.n_tracked_history.append(n_in)
+            self.metrics["last_inliers"] = n_in
+            if need_kf:
+                self._create_keyframe(frame, out.T_cw, out.bindings)
+                created = True
+        else:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self.metrics["frames_lost"] += 1
+
+        if created:
+            self._log_pose()
+        else:
+            self.trajectory.append(
+                (self.frame_id, out.T_cr, self.ref_kf, self.state != TrackState.OK)
+            )
+        self._finish_frame(frame, out.bindings if (ok and not created) else None)
+
+    # -- initialization and keyframes ----------------------------------------
+
+    def _stereo_initialize(self, frame: Frame):
+        # StereoInitialization's N>500 gate (Tracking.cc:≈500), scaled to
+        # half the capacity for capacities below 1000.
+        cap = int(frame.valid.shape[0])
+        gate = 500 if cap >= 1000 else max(20, cap // 2)
+        n_depth, n_valid = self._host(
+            torch.stack([((frame.depth > 0) & frame.valid).sum(), frame.valid.sum()])
+        )
+        if n_depth < gate and n_valid < gate:
+            return
+        T0 = torch.eye(4, device=self.device)
+        pos_w, ok = unproject_frame_depth(frame, T0, self.cam)
+        m, pids = add_points(self.map, pos_w, frame.desc, ok, 0, reverse=True)
+        bind = torch.where(ok, pids, NO_POINT)
+        m, kf0 = insert_keyframe(m, frame, T0, self.frame_id, bind, -1)
+        self.map = ms.update_point_stats(m, self.scale_factors)
+        self.ref_kf = self._host(kf0)
+        self.last_T = T0
+        self.last_bindings = bind
+        self.state = TrackState.OK
+        self.last_kf_frame_id = self.frame_id
+
+    def _th_depth(self) -> float:
+        c = self.settings.camera
+        return c.th_depth * c.bf / c.fx if c.bf > 0 else 1e9
+
+    def _create_keyframe(self, frame: Frame, T, bindings):
+        """Insert the frame as a keyframe, spawning close-depth points for
+        its unbound keypoints (Tracking.cc:≈1060).  Without a mapper no
+        point is culled, so the bindings need no scrub against the pool."""
+        m = self.map
+        pos_w, ok = unproject_frame_depth(frame, T, self.cam)
+        ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
+        m, pids = add_points(m, pos_w, frame.desc, ok, m.n_kf, reverse=True)
+        bindings = torch.where(ok & (pids >= 0), pids, bindings)
+        m, kf_id = insert_keyframe(m, frame, T, self.frame_id, bindings, self.ref_kf)
+        self.map = ms.update_point_stats(m, self.scale_factors)
+        self.metrics["keyframes_created"] += 1
+        self.ref_kf = self._host(kf_id)
+        self.last_kf_frame_id = self.frame_id
+        self.last_bindings = bindings
+
+    # -- bookkeeping -------------------------------------------------------
+
+    def _log_pose(self):
+        # The pose relative to the reference keyframe (mlRelativeFramePoses,
+        # Tracking.cc:≈480), replayed against keyframe poses at export.
+        T_rw = self.map.kf_pose_cw[self.ref_kf].cpu().numpy()
+        T_cr = self.last_T.cpu().numpy() @ np.linalg.inv(T_rw)
+        self.trajectory.append(
+            (self.frame_id, T_cr, self.ref_kf, self.state != TrackState.OK)
+        )
+
+    def _finish_frame(self, frame: Frame, bindings=None):
+        self.last_frame = frame
+        if bindings is not None:
+            self.last_bindings = bindings
+        elif self.last_bindings is None:
+            self.last_bindings = torch.full(
+                (frame.xy.shape[0],), NO_POINT, dtype=torch.int32, device=self.device
+            )
+        self.frame_id += 1
+
+    # -- outputs -----------------------------------------------------------
+
+    def poses_wc(self) -> np.ndarray:
+        """(F, 4, 4) camera-to-world trajectory, replayed against the
+        current keyframe poses (System::SaveTrajectory*'s Tcr * Trw)."""
+        kf_poses = self.map.kf_pose_cw.cpu().numpy()
+        out = []
+        for _, T_cr, ref, _ in self.trajectory:
+            T_cr = T_cr.cpu().numpy() if torch.is_tensor(T_cr) else np.asarray(T_cr)
+            out.append(np.linalg.inv(T_cr @ kf_poses[ref]))
+        return np.stack(out)
