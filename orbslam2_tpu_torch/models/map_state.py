@@ -1,7 +1,7 @@
 """The map as fixed-capacity struct-of-arrays state.
 
 Port of the part of ``orbslam2_tpu/models/map_state.py`` that RGB-D tracking
-uses (``Map``/``KeyFrame``/``MapPoint``, src/Map.cc, src/KeyFrame.cc,
+and local mapping use (``Map``/``KeyFrame``/``MapPoint``, src/Map.cc, src/KeyFrame.cc,
 src/MapPoint.cc): pools with validity masks, observations stored forward
 (keyframe slot -> point id).
 
@@ -15,9 +15,13 @@ sliced off, where the reference relies on ``mode="drop"``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..ops.hamming import bit_signs
+from ..ops.select import topk_stable
 
 NO_POINT = -1
 
@@ -64,7 +68,7 @@ class MapState(NamedTuple):
 
 
 def make_empty_map(kf_capacity: int, pt_capacity: int, feat_capacity: int,
-                   device="cpu") -> MapState:
+                   device) -> MapState:
     K, P, N = kf_capacity, pt_capacity, feat_capacity
     f32, i32 = torch.float32, torch.int32
     kw = dict(device=device)
@@ -139,8 +143,10 @@ def update_point_stats(m: MapState, scale_factors: torch.Tensor) -> MapState:
     flat_pts = pts_safe.reshape(-1)
     okf = ok.reshape(-1)
 
-    Rt = m.kf_pose_cw[:, :3, :3].transpose(1, 2)
-    cam_centers = -(Rt @ m.kf_pose_cw[:, :3, 3:4])[..., 0]  # (K, 3)
+    # The reference's "camera centres" are -R t (its einsum contracts R^T
+    # over its first index), not the centre -R^T t; kept for parity (ROADMAP
+    # Queue 3).  They agree for the identity pose of the first keyframe.
+    cam_centers = -(m.kf_pose_cw[:, :3, :3] @ m.kf_pose_cw[:, :3, 3:4])[..., 0]  # (K, 3)
     kf_ids = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
     vec = m.pt_pos[flat_pts] - cam_centers[kf_ids]
     vec = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-9)
@@ -189,3 +195,260 @@ def predict_scale(
     ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
     lvl = (scale_factors[None, :] < ratio[..., None]).sum(-1)
     return torch.clamp(lvl, 0, scale_factors.shape[0] - 1)
+
+
+def scatter_min(size: int, index: torch.Tensor, src: torch.Tensor, fill) -> torch.Tensor:
+    """``full(size, fill).at[index].min(src, mode="drop")`` along dim 0."""
+    return -scatter_max(size, index, -src, fill=-fill)
+
+
+def scatter_add(size: int, index: torch.Tensor, src) -> torch.Tensor:
+    """``zeros(size).at[index].add(src, mode="drop")`` along dim 0: targets
+    outside [0, size) go to a sentinel row that is dropped."""
+    flat = index.reshape(-1).long()
+    flat = torch.where((flat >= 0) & (flat < size), flat, size)
+    if not torch.is_tensor(src):
+        src = torch.full(flat.shape, src, dtype=torch.int32, device=flat.device)
+    src = src.reshape(flat.shape + src.shape[index.dim():])
+    out = torch.zeros((size + 1,) + src.shape[1:], dtype=src.dtype, device=src.device)
+    return out.index_add(0, flat, src)[:size]
+
+
+# ---------------------------------------------------------------------------
+# Derived structure
+# ---------------------------------------------------------------------------
+
+
+def _valid_obs(m: MapState):
+    """(K, N) validity + point ids of the forward observation index."""
+    pts = m.kf_point
+    ok = (pts >= 0) & m.kf_kp_valid & m.kf_valid[:, None] & (pts < m.pt_capacity)
+    ok = ok & m.pt_valid[torch.where(ok, pts, 0).long()]
+    return ok, pts
+
+
+def points_seen_by(m: MapState, kf_mask: torch.Tensor) -> torch.Tensor:
+    """(P,) bool: points observed by any keyframe in ``kf_mask`` (K,)."""
+    ok, pts = _valid_obs(m)
+    ok = ok & kf_mask[:, None]
+    return scatter_max(m.pt_capacity, torch.where(ok, pts, m.pt_capacity), 1) > 0
+
+
+def covisible_row(m: MapState, kf_id) -> torch.Tensor:
+    """(K,) int32: shared-point counts of ``kf_id`` vs every keyframe — one
+    row of the covisibility matrix (KeyFrame::GetCovisiblesByWeight), its
+    own entry zeroed."""
+    P = m.pt_capacity
+    kf = torch.as_tensor(kf_id, device=m.kf_point.device).long()
+    row_pts = m.kf_point[kf]
+    ok_row = (
+        (row_pts >= 0) & m.kf_kp_valid[kf] & m.kf_valid[kf]
+        & m.pt_valid[torch.clamp(row_pts, min=0).long()]
+    )
+    member = scatter_max(P, torch.where(ok_row, row_pts, P), 1) > 0
+    ok, pts = _valid_obs(m)
+    hit = member[torch.where(ok, pts, 0).long()] & ok
+    w = hit.sum(1).to(torch.int32)
+    return w.index_fill(0, kf.view(1), 0)
+
+
+def point_observation_counts(m: MapState) -> torch.Tensor:
+    """(P,) int32 number of keyframes observing each point."""
+    ok, pts = _valid_obs(m)
+    return scatter_add(m.pt_capacity, torch.where(ok, pts, m.pt_capacity), 1)
+
+
+def best_covisible(m: MapState, kf_id, n_best: int = 10):
+    """Ids + weights of the top-n covisible keyframes of ``kf_id``
+    (KeyFrame::GetBestCovisibilityKeyFrames, src/KeyFrame.cc:≈185); ties go
+    to the lower id."""
+    w, ids = topk_stable(covisible_row(m, kf_id), n_best)
+    return ids.to(torch.int32), w
+
+
+def compute_distinctive_descriptors(
+    m: MapState,
+    max_obs: int = 16,
+    touched_kfs: Optional[torch.Tensor] = None,
+    subset_cap: int = 4096,
+) -> MapState:
+    """MapPoint::ComputeDistinctiveDescriptors (MapPoint.cc:≈260): for each
+    point, the observation descriptor with the least median Hamming distance
+    to the point's other observations.  The per-point observation lists
+    come from a stable sort of the forward index by point id; exact for
+    points with at most ``max_obs`` observers (beyond that the first
+    ``max_obs`` vote).
+
+    ``touched_kfs`` (T,): only points observed by those keyframes are
+    recomputed, at most ``subset_cap`` of them."""
+    K, N = m.kf_point.shape
+    P = m.pt_capacity
+    dev = m.kf_point.device
+    ok = (m.kf_point >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    flat_pid = torch.where(ok, m.kf_point, P).reshape(-1).long()
+
+    if touched_kfs is not None:
+        kf_mask = scatter_max(K, touched_kfs, 1) > 0
+        member = points_seen_by(m, kf_mask)
+        P_eff = min(subset_cap, P)
+        _, sel = topk_stable(member.to(torch.float32), P_eff)
+        sel_ok = member[sel]
+        g2l = torch.full((P + 1,), P_eff, dtype=torch.int64, device=dev)
+        g2l[sel] = torch.arange(P_eff, device=dev)
+        flat_pid = g2l[torch.clamp(flat_pid, max=P)]
+    else:
+        P_eff = P
+    desc_flat = m.kf_desc.reshape(-1, 8)
+
+    order = torch.argsort(flat_pid, stable=True)  # the sentinel sorts last
+    sorted_pid = flat_pid[order]
+    sorted_desc = desc_flat[order]
+    pids = torch.arange(P_eff, device=dev)
+    base = torch.searchsorted(sorted_pid, pids, right=False)
+    end = torch.searchsorted(sorted_pid, pids, right=True)
+    idx = base[:, None] + torch.arange(max_obs, device=dev)[None, :]
+    valid = idx < end[:, None]
+    table = sorted_desc[torch.clamp(idx, max=sorted_pid.shape[0] - 1)]  # (P', M, 8)
+
+    # Pairwise Hamming distances as one batched product of the +-1 bit
+    # vectors (exact, as in ops/hamming.py's plain matrix).
+    signs = bit_signs(table.reshape(-1, 8)).view(P_eff, max_obs, 256)
+    d = ((256.0 - signs @ signs.transpose(1, 2)) * 0.5).to(torch.int32)
+    BIG = 1 << 12
+    pair_ok = valid[:, :, None] & valid[:, None, :]
+    d = torch.where(pair_ok, d, BIG)
+
+    # Median of each candidate's row (self-distance 0 included, median
+    # index (n-1)/2 rounded down, as the reference).
+    cnt = valid.sum(1)
+    d_sorted = torch.sort(d, dim=2).values
+    med_idx = torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), 0, max_obs - 1)
+    median = d_sorted.gather(2, med_idx[:, None, None].expand(P_eff, max_obs, 1))[..., 0]
+    median = torch.where(valid, median, BIG)
+    best = torch.argmin(median, dim=1)  # the first minimum
+    best_desc = table.gather(1, best[:, None, None].expand(P_eff, 1, 8))[:, 0, :]
+
+    if touched_kfs is not None:
+        upd = m.pt_valid[sel] & (cnt > 0) & sel_ok
+        pt_desc = m.pt_desc.clone()
+        pt_desc[sel] = torch.where(upd[:, None], best_desc, m.pt_desc[sel])
+        return m._replace(pt_desc=pt_desc)
+    upd = m.pt_valid & (cnt > 0)
+    return m._replace(pt_desc=torch.where(upd[:, None], best_desc, m.pt_desc))
+
+
+def dedup_binding_rows(kf_point: torch.Tensor) -> torch.Tensor:
+    """Unbind repeated point bindings within each keyframe row, keeping the
+    lowest slot — the EraseMapPointMatch branch of MapPoint::Replace
+    (MapPoint.cc:≈180)."""
+    sv, order = torch.sort(kf_point, dim=1, stable=True)
+    dup_sorted = torch.zeros_like(sv, dtype=torch.bool)
+    dup_sorted[:, 1:] = (sv[:, 1:] == sv[:, :-1]) & (sv[:, 1:] >= 0)
+    dup = torch.zeros_like(dup_sorted).scatter(1, order, dup_sorted)
+    return torch.where(dup, NO_POINT, kf_point)
+
+
+def apply_point_replacements(
+    m: MapState,
+    old_pt: torch.Tensor,   # (M,) point ids to retire
+    new_pt: torch.Tensor,   # (M,) surviving point ids
+    do: torch.Tensor,       # (M,) bool
+) -> MapState:
+    """Batched ``MapPoint::Replace`` (src/MapPoint.cc:≈180): rebind every
+    observation of each retired point to its survivor, merge the found /
+    visible statistics, invalidate the retired point and unbind duplicate
+    bindings of the survivor.  A survivor that is itself retired elsewhere
+    drops that replacement; a point retired twice merges its statistics
+    once (its first slot wins)."""
+    P = m.pt_capacity
+    M = old_pt.shape[0]
+    dev = old_pt.device
+    do = do & (old_pt >= 0) & (new_pt >= 0) & (old_pt != new_pt)
+    old_safe = torch.clamp(old_pt, 0, P - 1).long()
+    new_safe = torch.clamp(new_pt, 0, P - 1).long()
+    being_replaced = scatter_max(P, torch.where(do, old_pt, P), 1) > 0
+    do = do & ~being_replaced[new_safe]
+    slot_ids = torch.arange(M, device=dev)
+    first_slot = scatter_min(P, torch.where(do, old_pt, P), slot_ids, fill=M)
+    is_first = do & (first_slot[old_safe] == slot_ids)
+
+    old_idx = torch.where(is_first, old_pt, P)
+    repl = scatter_last(
+        torch.arange(P, dtype=m.kf_point.dtype, device=dev), old_idx,
+        torch.where(is_first, new_pt, 0).to(m.kf_point.dtype),
+    )
+    kf_point = torch.where(
+        m.kf_point >= 0, repl[torch.clamp(m.kf_point, 0, P - 1).long()], m.kf_point
+    )
+    kf_point = dedup_binding_rows(kf_point)
+
+    new_idx = torch.where(is_first, new_pt, P)
+    zero = torch.zeros_like(m.pt_visible[old_safe])
+    pt_visible = m.pt_visible + scatter_add(
+        P, new_idx, torch.where(is_first, m.pt_visible[old_safe], zero))
+    pt_found = m.pt_found + scatter_add(
+        P, new_idx, torch.where(is_first, m.pt_found[old_safe], zero))
+    pt_valid = m.pt_valid & ~(scatter_max(P, old_idx, 1) > 0)
+    return m._replace(kf_point=kf_point, pt_valid=pt_valid,
+                      pt_visible=pt_visible, pt_found=pt_found)
+
+
+def compact_map(m: MapState):
+    """Host-side keyframe-pool compaction: valid keyframes slide down to
+    dense slots 0..K'-1 in id order, parents and point reference keyframes
+    are remapped (a culled parent resolves to its nearest valid ancestor),
+    freed pose slots become the identity.  Point slots stay in place.
+
+    Returns (m2, kf_new_from_old): (K,) int64 numpy, -1 where the old id was
+    culled."""
+    K = m.kf_capacity
+    dev = m.kf_pose_cw.device
+    kf_valid = m.kf_valid.cpu().numpy().copy()
+    n_kf = int(m.n_kf)
+    kf_valid[n_kf:] = False
+    old_ids = np.nonzero(kf_valid)[0]
+    kf_map = np.full(K, -1, np.int64)
+    kf_map[old_ids] = np.arange(len(old_ids))
+
+    def take_kf(arr, fill=0):
+        a = arr.cpu().numpy()
+        out = np.full_like(a, fill)
+        out[: len(old_ids)] = a[old_ids]
+        return torch.from_numpy(out).to(dev)
+
+    parent = m.kf_parent.cpu().numpy().astype(np.int64)
+    resolved = parent.copy()
+    for _ in range(8):
+        bad = (resolved >= 0) & (kf_map[np.maximum(resolved, 0)] < 0)
+        if not bad.any():
+            break
+        resolved[bad] = parent[np.maximum(resolved[bad], 0)]
+    new_parent = np.where(resolved >= 0, kf_map[np.maximum(resolved, 0)], -1)[old_ids]
+    new_parent_full = np.full(K, -1, np.int64)
+    new_parent_full[: len(old_ids)] = new_parent
+
+    ref = kf_map[np.clip(m.pt_ref_kf.cpu().numpy(), 0, K - 1)]
+    first = kf_map[np.clip(m.pt_first_kf.cpu().numpy(), 0, K - 1)]
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    poses[: len(old_ids)] = m.kf_pose_cw.cpu().numpy()[old_ids]
+
+    def i32(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    m2 = m._replace(
+        kf_pose_cw=torch.from_numpy(poses).to(dev),
+        kf_xy=take_kf(m.kf_xy),
+        kf_level=take_kf(m.kf_level),
+        kf_angle=take_kf(m.kf_angle),
+        kf_desc=take_kf(m.kf_desc),
+        kf_ur=take_kf(m.kf_ur, fill=-1),
+        kf_kp_valid=take_kf(m.kf_kp_valid, fill=False),
+        kf_point=take_kf(m.kf_point, fill=NO_POINT),
+        kf_valid=take_kf(m.kf_valid, fill=False),
+        kf_frame_id=take_kf(m.kf_frame_id),
+        kf_parent=i32(new_parent_full),
+        pt_ref_kf=i32(np.maximum(ref, 0)),
+        pt_first_kf=i32(np.maximum(first, 0)),
+        n_kf=torch.tensor(len(old_ids), dtype=torch.int32, device=dev),
+    )
+    return m2, kf_map

@@ -1,7 +1,8 @@
 """System facade — the public API.
 
-Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for the
-RGB-D tracking slice: ``track_rgbd``, the metrics snapshot and the three
+Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
+RGB-D tracking with synchronous local mapping: ``track_rgbd``, the metrics
+snapshot and the three
 trajectory savers (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
 SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, rather than being ignored.
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import Settings
+from .local_mapping import LocalMapper
 from .tracking import Tracker
 
 
@@ -27,11 +29,13 @@ def _not_ported(what: str, item: int):
 
 
 class SlamSystem:
-    """``SlamSystem(settings, "rgbd", enable_mapping=False,
-    enable_loop_closing=False, device=...)`` then ``track_rgbd`` per frame.
+    """``SlamSystem(settings, "rgbd", enable_loop_closing=False)`` then
+    ``track_rgbd`` per frame; ``enable_mapping`` (default True) runs local
+    mapping after each keyframe.
 
     The signature and defaults are the reference's; every option this port
-    lacks raises.  ``device`` selects where tracking runs ("cpu" or "cuda").
+    lacks raises.  ``device`` is where tracking and mapping run: the card
+    unless the caller asks for "cpu".
     """
 
     def __init__(
@@ -46,7 +50,7 @@ class SlamSystem:
         async_mapping: bool = False,
         mapping_device=None,
         mesh=None,
-        device="cpu",
+        device="cuda",
     ):
         if sensor == Sensor.MONOCULAR:
             raise _not_ported("monocular tracking", 13)
@@ -54,8 +58,6 @@ class SlamSystem:
             raise _not_ported("stereo tracking", 12)
         if sensor != Sensor.RGBD:
             raise ValueError(f"unknown sensor {sensor!r}")
-        if enable_mapping:
-            raise _not_ported("local mapping (enable_mapping=True)", 9)
         if enable_loop_closing:
             raise _not_ported("loop closing (enable_loop_closing=True)", 15)
         if vocabulary is not None:
@@ -69,7 +71,10 @@ class SlamSystem:
         self.settings = settings
         self.sensor = sensor
         self.device = torch.device(device)
-        self.tracker = Tracker(settings, device=self.device)
+        # Synchronous local mapping after each keyframe (the reference's
+        # LocalMapping thread; async mapping is item 10).
+        self.local_mapper = LocalMapper(settings, sensor=sensor) if enable_mapping else None
+        self.tracker = Tracker(settings, local_mapper=self.local_mapper, device=self.device)
         self.timestamps = []
 
     # -- per-frame API (System::TrackRGBD) ---------------------------------

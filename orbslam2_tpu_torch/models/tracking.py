@@ -16,7 +16,8 @@ names and fixed shapes:
 
 The host ``Tracker`` runs the state machine.  Initialization builds the
 first keyframe from depth (StereoInitialization, ≈500); every later frame
-goes through ``track_fused._fused_track``.  Local mapping, loop closing,
+goes through ``track_fused._fused_track``; a ``LocalMapper`` given to the
+tracker maps each new keyframe synchronously.  Loop closing,
 relocalization and the chunked/pipelined trackers are not ported yet.
 
 Repeated scatter targets are resolved as the reference's CPU run resolves
@@ -385,9 +386,8 @@ class Tracker:
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
-                 loop_closer=None, device="cpu"):
+                 loop_closer=None, device="cuda"):
         for name, value, item in (
-            ("local_mapper", local_mapper, 9),
             ("database", database, 14),
             ("loop_closer", loop_closer, 15),
         ):
@@ -395,6 +395,14 @@ class Tracker:
                 raise NotImplementedError(
                     f"Tracker({name}=...) is not ported yet (ROADMAP Queue 1 item {item})"
                 )
+        from .local_mapping import LocalMapper
+
+        if local_mapper is not None and not isinstance(local_mapper, LocalMapper):
+            raise TypeError(
+                f"Tracker(local_mapper=...) takes this package's LocalMapper, "
+                f"not {type(local_mapper).__name__}"
+            )
+        self.local_mapper = local_mapper
         self.settings = settings
         self.device = torch.device(device)
         self.cam = settings.camera_model()
@@ -553,8 +561,11 @@ class Tracker:
 
     def _create_keyframe(self, frame: Frame, T, bindings):
         """Insert the frame as a keyframe, spawning close-depth points for
-        its unbound keypoints (Tracking.cc:≈1060).  Without a mapper no
-        point is culled, so the bindings need no scrub against the pool."""
+        its unbound keypoints (Tracking.cc:≈1060), then run the local
+        mapper on it synchronously.  Mapping may cull points whose slots
+        are reused later, so the held bindings are scrubbed against the
+        pool; trajectory entries of culled keyframes are re-anchored and
+        the pool compacted when it nears capacity."""
         m = self.map
         pos_w, ok = unproject_frame_depth(frame, T, self.cam)
         ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
@@ -566,6 +577,73 @@ class Tracker:
         self.ref_kf = self._host(kf_id)
         self.last_kf_frame_id = self.frame_id
         self.last_bindings = bindings
+        if self.local_mapper is None:
+            return
+        self.map = self.local_mapper.process_keyframe(self.map, self.ref_kf)
+        self.last_bindings = torch.where(
+            self.map.pt_valid[torch.clamp(bindings, min=0).long()] & (bindings >= 0),
+            bindings, NO_POINT,
+        )
+        pool = self._host(torch.cat([self.map.kf_valid.to(torch.int32), self.map.n_kf.view(1)]))
+        kf_valid = np.array(pool[:-1], dtype=bool)
+        self._reanchor_culled_refs(kf_valid)
+        self._maybe_compact(pool[-1])
+
+    # -- keyframe-pool maintenance -------------------------------------------
+
+    def _reanchor_culled_refs(self, kf_valid: np.ndarray):
+        """Re-anchor trajectory entries whose reference keyframe was culled
+        to its nearest valid ancestor, while the culled pose is still that
+        of the live map (the reference replays bad keyframes through their
+        spanning-tree parents at save time, System.cc:≈270).  ``kf_valid``
+        is the host copy of ``map.kf_valid``."""
+        refs = np.array([e[2] for e in self.trajectory], np.int64)
+        if refs.size == 0:
+            return
+        bad = np.unique(refs[(refs >= 0) & ~kf_valid[np.maximum(refs, 0)]])
+        if bad.size == 0:
+            return
+        poses = self.map.kf_pose_cw.cpu().numpy()
+        parent = self.map.kf_parent.cpu().numpy()
+        self.metrics["host_syncs"] += 2
+        anc = {}
+        for r in bad.tolist():
+            a = r
+            for _ in range(64):
+                a = int(parent[a]) if a >= 0 else -1
+                if a < 0 or kf_valid[a]:
+                    break
+            if a < 0 or not kf_valid[a]:
+                a = 0  # the root keyframe is never culled
+            # T_c<-anc = T_c<-r @ T_r<-w @ T_w<-anc
+            anc[r] = (a, poses[r] @ np.linalg.inv(poses[a]))
+        self.trajectory = [
+            (fid, _host_pose(T_cr) @ anc[ref][1], anc[ref][0], lost)
+            if ref in anc else (fid, T_cr, ref, lost)
+            for fid, T_cr, ref, lost in self.trajectory
+        ]
+
+    def _maybe_compact(self, n_kf: int):
+        """Compact the keyframe pool when it is within 4 slots of capacity
+        and something was culled; every keyframe id the tracker holds is
+        remapped.  The trajectory must already be re-anchored against the
+        pool.  (The reference's pending-chunk and async branches belong to
+        the chunked tracker and the async pipeline, not ported yet.)"""
+        if n_kf < self.map.kf_capacity - 4:
+            return
+        m2, kf_map = ms.compact_map(self.map)
+        if int(m2.n_kf) >= n_kf:
+            return  # nothing reclaimed: the pool is full
+        self.map = m2
+
+        def r(k):
+            return int(kf_map[k]) if k >= 0 else -1
+
+        self.ref_kf = max(r(self.ref_kf), 0)
+        self.metrics["compactions"] = self.metrics.get("compactions", 0) + 1
+        self.trajectory = [
+            (fid, T_cr, max(r(ref), 0), lost) for fid, T_cr, ref, lost in self.trajectory
+        ]
 
     # -- bookkeeping -------------------------------------------------------
 
@@ -594,8 +672,10 @@ class Tracker:
         """(F, 4, 4) camera-to-world trajectory, replayed against the
         current keyframe poses (System::SaveTrajectory*'s Tcr * Trw)."""
         kf_poses = self.map.kf_pose_cw.cpu().numpy()
-        out = []
-        for _, T_cr, ref, _ in self.trajectory:
-            T_cr = T_cr.cpu().numpy() if torch.is_tensor(T_cr) else np.asarray(T_cr)
-            out.append(np.linalg.inv(T_cr @ kf_poses[ref]))
-        return np.stack(out)
+        return np.stack([np.linalg.inv(_host_pose(T_cr) @ kf_poses[ref])
+                         for _, T_cr, ref, _ in self.trajectory])
+
+
+def _host_pose(T) -> np.ndarray:
+    """A trajectory entry's pose (a device tensor or an array) as numpy."""
+    return T.cpu().numpy() if torch.is_tensor(T) else np.asarray(T)

@@ -104,7 +104,7 @@ class OrbExtractor:
     """
 
     def __init__(self, orb: OrbSettings, tpu: TpuSettings, cell: int = 32,
-                 device="cpu"):
+                 device="cuda"):
         self.orb = orb
         self.tpu = tpu
         self.cell = cell

@@ -26,19 +26,21 @@ HISTO_LENGTH = 30  # rotation-consistency histogram bins
 
 _INVALID_DIST = 10_000  # > any possible 256-bit distance
 
-_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8)
+
+def bit_signs(desc: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 -> (N, 256) float32: each descriptor bit as +1 / -1."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    bits = torch.bitwise_and(torch.bitwise_right_shift(desc[:, :, None], shifts), 1)
+    return (2 * bits - 1).to(torch.float32).reshape(desc.shape[0], 256)
 
 
 def _hamming_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(Na, 8) x (Nb, 8) int32 -> (Na, Nb) int32: XOR, then a 256-entry
-    popcount table over the bytes of each word."""
-    na, nb = desc_a.shape[0], desc_b.shape[0]
-    lut = _POPCOUNT8.to(desc_a.device)
-    out = torch.zeros((na, nb), dtype=torch.int32, device=desc_a.device)
-    for k in range(8):
-        x = torch.bitwise_xor(desc_a[:, k, None], desc_b[None, :, k]).contiguous()
-        out += lut[x.view(torch.uint8).view(na, nb, 4).long()].sum(-1, dtype=torch.int32)
-    return out
+    """(Na, 8) x (Nb, 8) int32 -> (Na, Nb) int32 through one float32 matmul
+    of the +1/-1 bit vectors: a . b = 256 - 2 d.  Every product is +-1 and
+    every partial sum an integer of magnitude <= 256, so the result is exact
+    in any summation order (TF32 is off, see the package's ``__init__``)."""
+    dot = bit_signs(desc_a) @ bit_signs(desc_b).T
+    return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Projection-guided matching — the SearchByProjection core.
 
-Port of the tracking half of ``orbslam2_tpu/ops/matcher.py``
-(``ORBmatcher::SearchByProjection``, src/ORBmatcher.cc:≈55/≈1180): packed
-Hamming nearest + second neighbour under a per-source circular window and
-octave band.  The Hamming matrix goes through ``hamming.hamming_matrix``,
+Port of ``orbslam2_tpu/ops/matcher.py`` for RGB-D tracking and local
+mapping: ``ORBmatcher::SearchByProjection`` (src/ORBmatcher.cc:≈55/≈1180),
+packed Hamming nearest + second neighbour under a per-source circular
+window and octave band, and ``SearchForTriangulation`` (≈650).  The Hamming matrix goes through ``hamming.hamming_matrix``,
 which launches the CUDA kernel for CUDA tensors.
 """
 
@@ -14,7 +14,10 @@ from typing import Optional
 import torch
 
 from .extractor import Features
-from .hamming import TH_HIGH, Matches, hamming_matrix, masked_best2
+from .hamming import (
+    TH_HIGH, TH_LOW, Matches, hamming_matrix, masked_best2, match_descriptors,
+    rotation_consistency,
+)
 
 
 def projection_match(
@@ -75,3 +78,38 @@ def search_by_projection(
         level_band=level_band, max_dist=max_dist, ratio=ratio,
         level_dir=level_dir,
     )
+
+
+def epipolar_distance(xy1: torch.Tensor, xy2: torch.Tensor, F12: torch.Tensor) -> torch.Tensor:
+    """(N1, 2) x (N2, 2) -> (N1, N2) squared distance of each x2 from the
+    epipolar line x1^T F12 (ORBmatcher::CheckDistEpipolarLine,
+    src/ORBmatcher.cc:≈45)."""
+    x1h = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)
+    lines = x1h @ F12  # (N1, 3): a x + b y + c = 0 in image 2
+    a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
+    num = a * xy2[None, :, 0] + b * xy2[None, :, 1] + c
+    return (num * num) / torch.clamp(a * a + b * b, min=1e-12)
+
+
+def search_for_triangulation(
+    f1: Features,
+    f2: Features,
+    F12: torch.Tensor,
+    sigma2: torch.Tensor,
+    check_rotation: bool = True,
+) -> Matches:
+    """Epipolar-constrained matching for new-point triangulation
+    (ORBmatcher::SearchForTriangulation, src/ORBmatcher.cc:≈650): the
+    squared epipolar distance gate is 3.84 sigma^2 at the octave of the
+    keypoint in image 2; cross-checked TH_LOW matching, then the rotation
+    histogram.  The reference's epipole gate (``epipole2``) is unused on the
+    RGB-D path and not ported."""
+    d_epi = epipolar_distance(f1.xy, f2.xy, F12)
+    th = 3.84 * sigma2[torch.clamp(f2.level, 0, sigma2.shape[0] - 1).long()]
+    m = match_descriptors(
+        f1.desc, f1.valid, f2.desc, f2.valid,
+        pair_mask=d_epi <= th[None, :], max_dist=TH_LOW, ratio=1.0, cross_check=True,
+    )
+    if check_rotation:
+        m = m._replace(ok=rotation_consistency(f1.angle, f2.angle, m.idx, m.ok))
+    return m

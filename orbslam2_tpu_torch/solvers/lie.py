@@ -1,5 +1,5 @@
 """SE(3) operations on torch tensors — the part of
-``orbslam2_tpu/solvers/lie.py`` that RGB-D tracking calls.
+``orbslam2_tpu/solvers/lie.py`` that RGB-D tracking and local mapping call.
 
 SE3 is a (..., 4, 4) homogeneous matrix; tangent vectors are
 ``[rho(3), phi(3)]`` (translation first), as in the reference package.
@@ -80,6 +80,34 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
 def se3_apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., 3)."""
     return (p[..., None, :] * T[..., :3, :3]).sum(-1) + T[..., :3, 3]
+
+
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of batched (..., 3, 3) matrices, with
+    the reference's determinant floor: |det| < 1e-12 becomes 1e-12."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    adj = torch.stack(
+        [
+            torch.stack([A11, A12, A13], -1),
+            torch.stack([A21, A22, A23], -1),
+            torch.stack([A31, A32, A33], -1),
+        ],
+        -2,
+    )
+    return adj / det[..., None, None]
 
 
 def orthonormalize_se3(T: torch.Tensor, iters: int = 3) -> torch.Tensor:

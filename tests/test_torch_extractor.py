@@ -110,7 +110,7 @@ def test_mono_frame():
                  tpu=TpuSettings(max_keypoints=512))
     ps = convert.settings_from_reference(s)
     ref = jframe.build_mono_frame(img, jext.OrbExtractor(s.orb, s.tpu), cam)
-    out = tframe.build_mono_frame(img, text.OrbExtractor(ps.orb, ps.tpu),
+    out = tframe.build_mono_frame(img, text.OrbExtractor(ps.orb, ps.tpu, device="cpu"),
                                   tcam.make_camera(320.0, 320.0, 160.0, 120.0, bf=32.0,
                                                    width=320, height=240))
     np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
@@ -154,7 +154,7 @@ def test_extractor_matches_on_the_bench_frame(bench_frame):
     s = bench_settings()
     ref = jext.OrbExtractor(s.orb, s.tpu)(bench_frame)
     ps = convert.settings_from_reference(s)
-    out = text.OrbExtractor(ps.orb, ps.tpu)(bench_frame)
+    out = text.OrbExtractor(ps.orb, ps.tpu, device="cpu")(bench_frame)
 
     valid = np.asarray(ref.valid)
     np.testing.assert_array_equal(out.valid.numpy(), valid)

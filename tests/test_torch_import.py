@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports without JAX, dispatches by
-tensor device, and refuses what it has not ported yet."""
+tensor device, runs on the card unless asked for the CPU, and refuses what
+it has not ported yet."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -11,9 +13,12 @@ import torch
 
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.config import CameraSettings, OrbSettings, Settings, TpuSettings
+from orbslam2_tpu_torch.models import map_state
+from orbslam2_tpu_torch.models.local_mapping import LocalMapper
 from orbslam2_tpu_torch.models.system import SlamSystem
 from orbslam2_tpu_torch.models.tracking import Tracker
 from orbslam2_tpu_torch.ops import fast, hamming
+from orbslam2_tpu_torch.ops.extractor import OrbExtractor
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -34,10 +39,14 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.ops.hamming",
     "orbslam2_tpu_torch.ops.matcher",
     "orbslam2_tpu_torch.ops.stereo",
+    "orbslam2_tpu_torch.ops.twoview",
+    "orbslam2_tpu_torch.solvers.ba_kernels",
+    "orbslam2_tpu_torch.solvers.local_ba",
     "orbslam2_tpu_torch.models.frame",
     "orbslam2_tpu_torch.models.map_state",
     "orbslam2_tpu_torch.models.tracking",
     "orbslam2_tpu_torch.models.track_fused",
+    "orbslam2_tpu_torch.models.local_mapping",
     "orbslam2_tpu_torch.models.system",
 ]
 
@@ -75,7 +84,7 @@ def test_tf32_is_off():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(sensor="mono", enable_mapping=False, enable_loop_closing=False), "item 13"),
     (dict(sensor="stereo", enable_mapping=False, enable_loop_closing=False), "item 12"),
-    (dict(sensor="rgbd", enable_loop_closing=False), "item 9"),
+    (dict(sensor="rgbd", enable_loop_closing=False, mapping_device="cpu"), "item 10"),
     (dict(sensor="rgbd", enable_mapping=False), "item 15"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, chunk=8), "item 11"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, pipeline=True),
@@ -89,19 +98,54 @@ def test_tf32_is_off():
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
-        SlamSystem(_settings(), **kwargs)
+        SlamSystem(_settings(), **kwargs, device="cpu")
 
 
 def test_tracker_refuses_mapper_database_loop_closer():
-    for kw in ("local_mapper", "database", "loop_closer"):
+    # A mapper that is not this package's LocalMapper is refused; the BoW
+    # database and loop closing are not ported yet.
+    with pytest.raises(TypeError, match="LocalMapper"):
+        Tracker(_settings(), local_mapper=object(), device="cpu")
+    for kw in ("database", "loop_closer"):
         with pytest.raises(NotImplementedError):
-            Tracker(_settings(), **{kw: object()})
+            Tracker(_settings(), **{kw: object()}, device="cpu")
 
 
 def test_slice_system_constructs_on_cpu():
-    s = SlamSystem(_settings(), "rgbd", enable_mapping=False, enable_loop_closing=False)
+    s = SlamSystem(_settings(), "rgbd", enable_mapping=False, enable_loop_closing=False,
+                   device="cpu")
     assert s.tracker.map.pt_pos.device.type == "cpu"
     assert s.metrics()["n_keyframes"] == 0
+    assert s.tracker.local_mapper is None
+
+
+def test_mapping_system_constructs_on_cpu():
+    s = SlamSystem(_settings(), "rgbd", enable_loop_closing=False, device="cpu")
+    assert isinstance(s.tracker.local_mapper, LocalMapper)
+    assert s.tracker.local_mapper is s.local_mapper
+    assert Tracker(_settings(), local_mapper=LocalMapper(_settings(), sensor="rgbd"),
+                   device="cpu").local_mapper is not None
+
+
+@pytest.mark.parametrize("entry", [SlamSystem.__init__, Tracker.__init__, OrbExtractor.__init__])
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_map_device_has_no_default():
+    assert inspect.signature(map_state.make_empty_map).parameters["device"].default is (
+        inspect.Parameter.empty)
+
+
+def test_default_device_never_falls_back_to_the_cpu():
+    """With no card, a default-device system fails where torch first
+    touches CUDA; it never moves to the CPU."""
+    if torch.cuda.is_available():
+        s = SlamSystem(_settings(), "rgbd", enable_loop_closing=False)
+        assert s.tracker.map.pt_pos.device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        SlamSystem(_settings(), "rgbd", enable_loop_closing=False)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -112,7 +156,9 @@ def test_cpu_tensors_take_the_plain_versions():
     a = torch.from_numpy(rng.integers(-2**31, 2**31, (5, 8)).astype(np.int32))
     b = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 8)).astype(np.int32))
     assert torch.equal(hamming.hamming_matrix(a, b), hamming._hamming_plain(a, b))
-    assert kernels.LAUNCHES == {"fast_score_nms": 0, "hamming_matrix": 0}
+    assert set(kernels.LAUNCHES) == {
+        "fast_score_nms", "hamming_matrix", "ba_normal_equations", "ba_chi2"}
+    assert set(kernels.LAUNCHES.values()) == {0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -123,6 +169,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.hamming_matrix_cuda(torch.zeros(2, 8, dtype=torch.int32),
                                     torch.zeros(2, 8, dtype=torch.int32))
+    C, N = 2, 5
+    ba = (torch.eye(4).repeat(C, 1, 1), torch.zeros(C, 3, N), torch.zeros(C, 2, N),
+          torch.zeros(C, N), torch.ones(C, N), torch.ones(C, N, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ba_normal_equations_cuda(*ba, (1.0, 1.0, 0.0, 0.0, 0.0), True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ba_chi2_cuda(*ba, (1.0, 1.0, 0.0, 0.0, 0.0))
 
 
 def test_build_is_keyed_by_the_sources():

@@ -48,7 +48,7 @@ def runs():
                              with_depth=True, seed=0, radius=0.25, forward=0.5)
     ref = Tracker(s, local_mapper=None, database=None, loop_closer=None)
     port = SlamSystem(convert.settings_from_reference(s), "rgbd",
-                      enable_mapping=False, enable_loop_closing=False)
+                      enable_mapping=False, enable_loop_closing=False, device="cpu")
     ref_log, port_log = [], []
     for i in range(len(seq.images)):
         ref.track_rgbd(seq.images[i], seq.depths[i], seq.timestamps[i])

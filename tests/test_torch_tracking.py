@@ -63,7 +63,7 @@ def run():
             velocity=None if tr.velocity is None else np.array(tr.velocity),
             ref_kf=tr.ref_kf,
         ))
-    port = ttr.Tracker(convert.settings_from_reference(s))
+    port = ttr.Tracker(convert.settings_from_reference(s), device="cpu")
     return dict(s=s, tr=tr, port=port, frames=frames, snaps=snaps)
 
 
@@ -125,7 +125,7 @@ def test_initial_map_from_depth(run):
     m = jms.update_point_stats(m, jnp.asarray(tr.scale_factors))
 
     tf = convert.frame_from_numpy(run["frames"][0], "cpu")
-    tm = tms.make_empty_map(16, 4096, 512)
+    tm = tms.make_empty_map(16, 4096, 512, device="cpu")
     tpos, tok = ttr.unproject_frame_depth(tf, torch.eye(4), port.cam)
     tm, tpids = ttr.add_points(tm, tpos, tf.desc, tok, 0, reverse=True)
     tm, _ = ttr.insert_keyframe(tm, tf, torch.eye(4), 0, torch.where(tok, tpids, -1), -1)
