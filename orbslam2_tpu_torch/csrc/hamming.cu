@@ -9,8 +9,8 @@
 // What bounds it on an H100: the int32 output.  At 4096 x 1024 that is
 // 16 MiB written against 160 KiB of descriptors read, about 5 us of HBM
 // time; the XOR/popcount work (16 ops per output) is far below the ALU
-// limit.  Fusing the mask and the best-2 reduction so the matrix is never
-// written is the shape of the fused projection matcher (K3), a later port.
+// limit.  The projection searches, which fuse the mask and the best-2
+// reduction, go through K3 (projection_best2.cu) and never write it.
 //
 // Design: one block per 32x32 output tile, 32x8 threads.  The tile's 32
 // rows of A and 32 rows of B (32 bytes each) are staged in shared memory;

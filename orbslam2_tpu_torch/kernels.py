@@ -1,16 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  At first use each is
-compiled by its own ``nvcc`` for ``sm_90a`` (all started together), and the
-objects are linked into one shared library under
+The sources under ``csrc/`` have a plain C interface.  At first use one
+``nvcc`` call compiles them all for ``sm_90a`` into one shared library under
 ``build/orbslam2_tpu_torch/<hash of the sources>/`` at the repository root
-(so an edit rebuilds), loaded with ``ctypes`` and launched on PyTorch's
-current stream.  Each C entry returns ``cudaGetLastError()`` and the
-wrapper raises if it is not 0.
+(so an edit rebuilds), which is loaded with ``ctypes``; the kernels launch
+on PyTorch's current stream.  Each C entry returns ``cudaGetLastError()``
+and the wrapper raises if it is not 0.
 
 Each wrapper takes CUDA tensors only and raises on anything else; the
 dispatch to the plain PyTorch versions for CPU tensors lives in the
-callers (``ops/fast.py``, ``ops/hamming.py``, ``solvers/ba_kernels.py``).
+callers (``ops/fast.py``, ``ops/hamming.py``, ``ops/matcher.py``,
+``solvers/ba_kernels.py``).
 ``LAUNCHES`` counts the launches of each kernel; nothing else changes it.
 """
 
@@ -26,14 +26,15 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fast_nms.cu", "hamming.cu", "ba_kernels.cu")
+_SOURCES = ("fast_nms.cu", "hamming.cu", "projection_best2.cu", "ba_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "orbslam2_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"fast_score_nms": 0, "hamming_matrix": 0, "ba_normal_equations": 0, "ba_chi2": 0}
+LAUNCHES = {"fast_score_nms": 0, "hamming_matrix": 0, "projection_best2": 0,
+            "ba_normal_equations": 0, "ba_chi2": 0}
 
 _lib = None
 
@@ -62,32 +63,25 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists: one
-    ``nvcc -c`` per source, all running at once, then one link."""
+    ``nvcc -shared`` over all the sources, into a temporary file that is
+    renamed into place, so a process never loads a half-written library."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objs = [Path(tmp) / (Path(name).stem + ".o") for name in _SOURCES]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)],
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for name, obj in zip(_SOURCES, objs)
-        ]
-        errors = []
-        for name, proc in zip(_SOURCES, procs):
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"{name} ({proc.returncode}):\n{err}")
-        if errors:
-            raise RuntimeError("nvcc failed: " + "\n".join(errors))
-        lib = Path(tmp) / out.name
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
-                             capture_output=True, text=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so")
+    os.close(fd)
+    try:
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *(str(_CSRC / n) for n in _SOURCES)],
+            capture_output=True, text=True,
+        )
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
-        os.replace(lib, out)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 
@@ -101,6 +95,8 @@ def load():
         lib.fast_score_nms_launch.restype = ci
         lib.hamming_matrix_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.hamming_matrix_launch.restype = ci
+        lib.projection_best2_launch.argtypes = [vp] * 10 + [ci, ci, ci] + [vp] * 4
+        lib.projection_best2_launch.restype = ci
         cf = ctypes.c_float
         lib.ba_normal_equations_launch.argtypes = (
             [vp] * 10 + [ci, ci] + [cf] * 5 + [ci, vp])
@@ -166,6 +162,68 @@ def hamming_matrix_cuda(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Ten
     _raise_on(err, "hamming_matrix")
     LAUNCHES["hamming_matrix"] += 1
     return out
+
+
+def _levels(t: torch.Tensor) -> torch.Tensor:
+    """Octave levels as int32 (``predict_scale`` gives int64)."""
+    return t.to(torch.int32) if t.dtype == torch.int64 else t
+
+
+def projection_best2_cuda(proj_uv, rr2, proj_level, proj_desc, proj_valid,
+                          frame_xy, frame_level, frame_desc, frame_valid,
+                          level_band: int, level_dir=None):
+    """K3: sources proj_uv (M, 2) / rr2 (M,) float32, proj_level (M,)
+    int32 or int64, proj_desc (M, 8) int32, proj_valid (M,) bool; targets
+    frame_xy (N, 2) float32, frame_level (N,) int32 or int64, frame_desc
+    (N, 8) int32, frame_valid (N,) bool; ``level_dir`` None or a 0-d / 1-
+    element int32 tensor read on the device.  All CUDA and contiguous.
+    Returns (best_idx (M,) int64, best (M,) int32, second (M,) int32), as
+    ``ops.matcher._projection_best2_plain``; any M, N >= 1."""
+    proj_level, frame_level = _levels(proj_level), _levels(frame_level)
+    for name, t, dtype, ndim in (
+        ("proj_uv", proj_uv, torch.float32, 2), ("rr2", rr2, torch.float32, 1),
+        ("proj_level", proj_level, torch.int32, 1), ("proj_desc", proj_desc, torch.int32, 2),
+        ("proj_valid", proj_valid, torch.bool, 1), ("frame_xy", frame_xy, torch.float32, 2),
+        ("frame_level", frame_level, torch.int32, 1), ("frame_desc", frame_desc, torch.int32, 2),
+        ("frame_valid", frame_valid, torch.bool, 1),
+    ):
+        _check(f"projection_best2 {name}", t, dtype, ndim)
+    M, N = proj_desc.shape[0], frame_desc.shape[0]
+    shapes = {"proj_uv": (proj_uv.shape, (M, 2)), "rr2": (rr2.shape, (M,)),
+              "proj_level": (proj_level.shape, (M,)), "proj_desc": (proj_desc.shape, (M, 8)),
+              "proj_valid": (proj_valid.shape, (M,)), "frame_xy": (frame_xy.shape, (N, 2)),
+              "frame_level": (frame_level.shape, (N,)), "frame_desc": (frame_desc.shape, (N, 8)),
+              "frame_valid": (frame_valid.shape, (N,))}
+    for name, (got, want) in shapes.items():
+        if tuple(got) != want:
+            raise ValueError(f"projection_best2: {name} has shape {tuple(got)}, expected {want}")
+    if M < 1 or N < 1:
+        raise ValueError(f"projection_best2: unsupported sizes M={M}, N={N}")
+    tensors = [proj_uv, rr2, proj_level, proj_desc, proj_valid,
+               frame_xy, frame_level, frame_desc, frame_valid]
+    if level_dir is not None:
+        if level_dir.device.type != "cuda" or level_dir.dtype != torch.int32 or (
+                level_dir.numel() != 1):
+            raise ValueError("projection_best2: level_dir must be one int32 on a CUDA device")
+        tensors.append(level_dir)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("projection_best2: operands on different devices")
+    dev = proj_desc.device
+    idx = torch.empty((M,), dtype=torch.int64, device=dev)
+    best = torch.empty((M,), dtype=torch.int32, device=dev)
+    second = torch.empty((M,), dtype=torch.int32, device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        err = lib.projection_best2_launch(
+            proj_desc.data_ptr(), proj_uv.data_ptr(), rr2.data_ptr(), proj_level.data_ptr(),
+            proj_valid.data_ptr(), frame_desc.data_ptr(), frame_xy.data_ptr(),
+            frame_level.data_ptr(), frame_valid.data_ptr(),
+            None if level_dir is None else level_dir.data_ptr(), M, N, int(level_band),
+            idx.data_ptr(), best.data_ptr(), second.data_ptr(), _stream(proj_desc),
+        )
+    _raise_on(err, "projection_best2")
+    LAUNCHES["projection_best2"] += 1
+    return idx, best, second
 
 
 def _ba_inputs(poses, X, uv, ur, inv_s2, mask):

@@ -1,7 +1,9 @@
 """Per-image working set: extraction + undistortion + depth association.
 
-Port of ``orbslam2_tpu/models/frame.py`` (``Frame``, src/Frame.cc): the mono
-and RGB-D constructors.  The stereo constructor is not ported yet.
+Port of ``orbslam2_tpu/models/frame.py`` (``Frame``, src/Frame.cc): the
+mono, stereo and RGB-D constructors.  The stereo constructor extracts the
+left and the right image one after the other, as the reference package
+does (the reference runs two extraction threads, Frame.cc:≈110).
 """
 
 from __future__ import annotations
@@ -43,6 +45,25 @@ def build_mono_frame(image, extractor: OrbExtractor, cam: CameraModel) -> Frame:
     return Frame(
         xy=undistort_points(cam, f.xy), level=f.level, angle=f.angle,
         response=f.response, desc=f.desc, valid=f.valid, ur=none, depth=none,
+    )
+
+
+def build_stereo_frame(
+    image_left, image_right, extractor: OrbExtractor, cam: CameraModel,
+    scale_factors: torch.Tensor,
+) -> Frame:
+    """Extract both images, then match left to right for ur and depth
+    (``ops.stereo.compute_stereo_matches``); keypoints are the left ones."""
+    image_left = torch.as_tensor(image_left, dtype=torch.float32, device=extractor.device)
+    image_right = torch.as_tensor(image_right, dtype=torch.float32, device=extractor.device)
+    left = extractor(image_left)
+    right = extractor(image_right)
+    ur, depth = stereo_ops.compute_stereo_matches(
+        left, right, image_left, image_right, scale_factors, cam.bf
+    )
+    return Frame(
+        xy=undistort_points(cam, left.xy), level=left.level, angle=left.angle,
+        response=left.response, desc=left.desc, valid=left.valid, ur=ur, depth=depth,
     )
 
 

@@ -1,8 +1,8 @@
 """System facade — the public API.
 
 Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
-RGB-D tracking with synchronous local mapping: ``track_rgbd``, the metrics
-snapshot and the three
+stereo and RGB-D tracking with synchronous local mapping: ``track_stereo``,
+``track_rgbd``, the metrics snapshot and the three
 trajectory savers (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
 SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, rather than being ignored.
@@ -30,8 +30,9 @@ def _not_ported(what: str, item: int):
 
 class SlamSystem:
     """``SlamSystem(settings, "rgbd", enable_loop_closing=False)`` then
-    ``track_rgbd`` per frame; ``enable_mapping`` (default True) runs local
-    mapping after each keyframe.
+    ``track_rgbd`` per frame, or ``SlamSystem(settings, "stereo",
+    enable_loop_closing=False)`` then ``track_stereo``; ``enable_mapping``
+    (default True) runs local mapping after each keyframe.
 
     The signature and defaults are the reference's; every option this port
     lacks raises.  ``device`` is where tracking and mapping run: the card
@@ -54,9 +55,7 @@ class SlamSystem:
     ):
         if sensor == Sensor.MONOCULAR:
             raise _not_ported("monocular tracking", 13)
-        if sensor == Sensor.STEREO:
-            raise _not_ported("stereo tracking", 12)
-        if sensor != Sensor.RGBD:
+        if sensor not in (Sensor.STEREO, Sensor.RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
         if enable_loop_closing:
             raise _not_ported("loop closing (enable_loop_closing=True)", 15)
@@ -77,7 +76,11 @@ class SlamSystem:
         self.tracker = Tracker(settings, local_mapper=self.local_mapper, device=self.device)
         self.timestamps = []
 
-    # -- per-frame API (System::TrackRGBD) ---------------------------------
+    # -- per-frame API (System::TrackStereo / TrackRGBD) -----------------
+
+    def track_stereo(self, image_left, image_right, timestamp: float):
+        self.timestamps.append(timestamp)
+        return self.tracker.track_stereo(image_left, image_right, timestamp)
 
     def track_rgbd(self, image, depth, timestamp: float):
         self.timestamps.append(timestamp)

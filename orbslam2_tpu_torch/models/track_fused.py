@@ -83,7 +83,8 @@ def _fused_track(
     kf_max_gap: int,
     kf_busy_frames: int,
 ) -> TrackOut:
-    """One RGB-D frame of the Track() chain.  The keyframe-policy knobs
+    """One stereo or RGB-D frame of the Track() chain (the two sensors
+    share every branch; mono is not ported).  The keyframe-policy knobs
     come from ``TpuSettings`` (the reference's function default for
     ``kf_busy_frames`` disagrees with its settings; the port has none)."""
     dev = frame.xy.device

@@ -1,6 +1,6 @@
-"""Tracking: the per-frame front end (RGB-D).
+"""Tracking: the per-frame front end (stereo and RGB-D).
 
-Port of ``orbslam2_tpu/models/tracking.py`` for the RGB-D slice
+Port of ``orbslam2_tpu/models/tracking.py`` for the stereo and RGB-D slices
 (``Tracking``, src/Tracking.cc).  The device functions keep the reference's
 names and fixed shapes:
 
@@ -15,9 +15,9 @@ names and fixed shapes:
                         keyframe insertion and depth-spawned points
 
 The host ``Tracker`` runs the state machine.  Initialization builds the
-first keyframe from depth (StereoInitialization, ≈500); every later frame
-goes through ``track_fused._fused_track``; a ``LocalMapper`` given to the
-tracker maps each new keyframe synchronously.  Loop closing,
+first keyframe from stereo or sensor depth (StereoInitialization, ≈500);
+every later frame goes through ``track_fused._fused_track``; a
+``LocalMapper`` given to the tracker maps each new keyframe synchronously.  Loop closing,
 relocalization and the chunked/pipelined trackers are not ported yet.
 
 Repeated scatter targets are resolved as the reference's CPU run resolves
@@ -42,7 +42,7 @@ from ..solvers.lie import se3_apply, se3_inverse
 from ..solvers.pose_opt import PoseObs, pose_optimization
 from ..utils.camera import CameraModel, in_image
 from . import map_state as ms
-from .frame import Frame, build_rgbd_frame
+from .frame import Frame, build_rgbd_frame, build_stereo_frame
 
 NO_POINT = ms.NO_POINT
 
@@ -377,9 +377,9 @@ _PATHS = {0: "none", 1: "motion", 2: "refkf"}
 
 
 class Tracker:
-    """Host orchestrator for per-frame RGB-D tracking: motion model
-    (mVelocity), last frame, reference keyframe, and the relative-pose log
-    for trajectory export (mlRelativeFramePoses, Tracking.cc:≈480).
+    """Host orchestrator for per-frame stereo and RGB-D tracking: motion
+    model (mVelocity), last frame, reference keyframe, and the relative-pose
+    log for trajectory export (mlRelativeFramePoses, Tracking.cc:≈480).
 
     ``metrics["host_syncs"]`` counts the device-to-host reads tracking
     made (each one waits for the device when the tensors are on a GPU).
@@ -453,6 +453,15 @@ class Tracker:
             torch.as_tensor(depth_map, dtype=torch.float32, device=self.device),
             self.extractor, self.cam, self.settings.camera.depth_map_factor,
         )
+        return self._track_frame(frame)
+
+    def track_stereo(self, image_left, image_right, timestamp: float = 0.0):
+        """Track one rectified stereo pair; returns the current pose
+        (world->camera)."""
+        return self._track_frame(build_stereo_frame(
+            image_left, image_right, self.extractor, self.cam, self.scale_factors))
+
+    def _track_frame(self, frame: Frame):
         if self.state == TrackState.NOT_INITIALIZED:
             self._track(frame)
         else:

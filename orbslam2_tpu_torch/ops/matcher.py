@@ -3,8 +3,14 @@
 Port of ``orbslam2_tpu/ops/matcher.py`` for RGB-D tracking and local
 mapping: ``ORBmatcher::SearchByProjection`` (src/ORBmatcher.cc:≈55/≈1180),
 packed Hamming nearest + second neighbour under a per-source circular
-window and octave band, and ``SearchForTriangulation`` (≈650).  The Hamming matrix goes through ``hamming.hamming_matrix``,
-which launches the CUDA kernel for CUDA tensors.
+window and octave band, and ``SearchForTriangulation`` (≈650).
+
+``projection_best2`` is the projection search's core: for CUDA tensors it
+launches the fused kernel (``csrc/projection_best2.cu``), which never
+writes the (M, N) distance matrix; CPU tensors take
+``_projection_best2_plain`` (the mask + ``masked_best2`` over the plain
+Hamming matrix).  Triangulation's matching goes through
+``hamming.hamming_matrix``, which launches its own kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -15,30 +21,19 @@ import torch
 
 from .extractor import Features
 from .hamming import (
-    TH_HIGH, TH_LOW, Matches, hamming_matrix, masked_best2, match_descriptors,
+    TH_HIGH, TH_LOW, Matches, _hamming_plain, masked_best2, match_descriptors,
     rotation_consistency,
 )
 
 
-def projection_match(
-    proj_uv: torch.Tensor,      # (M, 2) projected source positions
-    rr2: torch.Tensor,          # (M,) squared search radius per source
-    proj_level: torch.Tensor,   # (M,) predicted octave
-    proj_desc: torch.Tensor,    # (M, 8) int32
-    proj_valid: torch.Tensor,   # (M,) bool
-    frame_xy: torch.Tensor,     # (N, 2)
-    frame_level: torch.Tensor,  # (N,)
-    frame_desc: torch.Tensor,   # (N, 8) int32
-    frame_valid: torch.Tensor,  # (N,) bool
-    level_band: int,
-    max_dist: int,
-    ratio: float,
-    level_dir: Optional[torch.Tensor] = None,
-) -> Matches:
-    """Best and second Hamming neighbour inside each source's window
-    (``d2 <= rr2``) and octave band.  ``level_dir`` (int scalar tensor)
-    selects the motion-model octave gate: +1 forward motion (target octave
-    >= source), -1 backward (<=), 0 or None the symmetric +-level_band."""
+def _projection_best2_plain(
+    proj_uv, rr2, proj_level, proj_desc, proj_valid,
+    frame_xy, frame_level, frame_desc, frame_valid,
+    level_band: int, level_dir: Optional[torch.Tensor] = None,
+):
+    """The plain version of ``projection_best2``: the pair mask (window,
+    octave gate, validity) over the plain Hamming matrix, then
+    ``masked_best2``."""
     diff = proj_uv[:, None, :] - frame_xy[None, :, :]
     d2 = (diff * diff).sum(-1)
     dl = frame_level[None, :] - proj_level[:, None]
@@ -48,7 +43,66 @@ def projection_match(
             level_dir > 0, dl >= 0, torch.where(level_dir < 0, dl <= 0, band_ok)
         )
     mask = (d2 <= rr2[:, None]) & band_ok & proj_valid[:, None] & frame_valid[None, :]
-    best_idx, best, second = masked_best2(hamming_matrix(proj_desc, frame_desc), mask)
+    return masked_best2(_hamming_plain(proj_desc, frame_desc), mask)
+
+
+def projection_best2(
+    proj_uv: torch.Tensor,      # (M, 2) projected source positions
+    rr2: torch.Tensor,          # (M,) squared search radius per source
+    proj_level: torch.Tensor,   # (M,) predicted octave (int)
+    proj_desc: torch.Tensor,    # (M, 8) int32
+    proj_valid: torch.Tensor,   # (M,) bool
+    frame_xy: torch.Tensor,     # (N, 2)
+    frame_level: torch.Tensor,  # (N,) int
+    frame_desc: torch.Tensor,   # (N, 8) int32
+    frame_valid: torch.Tensor,  # (N,) bool
+    level_band: int,
+    level_dir: Optional[torch.Tensor] = None,
+):
+    """(best_idx (M,) int64, best (M,) int32, second (M,) int32): the
+    first-minimum column and the best and second-best Hamming distance over
+    the targets inside each source's window (``d2 <= rr2``) and octave gate,
+    with both sides valid; masked pairs count as distance 10000, so a row
+    without a candidate gives (0, 10000, 10000).  ``level_dir`` (0-d int
+    tensor) selects the motion-model octave gate: +1 forward motion
+    (target octave >= source), -1 backward (<=), 0 or None the symmetric
+    +-level_band.  CPU tensors take the plain version, CUDA tensors the
+    kernel; anything else raises."""
+    args = (proj_uv, rr2, proj_level, proj_desc, proj_valid,
+            frame_xy, frame_level, frame_desc, frame_valid)
+    kinds = {t.device.type for t in args + (() if level_dir is None else (level_dir,))}
+    if kinds == {"cpu"}:
+        return _projection_best2_plain(*args, level_band, level_dir)
+    if kinds != {"cuda"}:
+        raise ValueError(f"projection_best2: tensors on {sorted(kinds)}, expected all on "
+                         "the CPU or all on CUDA")
+    from ..kernels import projection_best2_cuda
+
+    return projection_best2_cuda(*(t.contiguous() for t in args), level_band, level_dir)
+
+
+def projection_match(
+    proj_uv: torch.Tensor,
+    rr2: torch.Tensor,
+    proj_level: torch.Tensor,
+    proj_desc: torch.Tensor,
+    proj_valid: torch.Tensor,
+    frame_xy: torch.Tensor,
+    frame_level: torch.Tensor,
+    frame_desc: torch.Tensor,
+    frame_valid: torch.Tensor,
+    level_band: int,
+    max_dist: int,
+    ratio: float,
+    level_dir: Optional[torch.Tensor] = None,
+) -> Matches:
+    """``projection_best2`` (the arguments are its own) with the
+    acceptance gates on top: best <= ``max_dist`` and best < ``ratio`` x
+    second."""
+    best_idx, best, second = projection_best2(
+        proj_uv, rr2, proj_level, proj_desc, proj_valid,
+        frame_xy, frame_level, frame_desc, frame_valid, level_band, level_dir,
+    )
     ok = (best <= max_dist) & proj_valid
     ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     return Matches(idx=best_idx, dist=best, dist2=second, ok=ok)

@@ -83,7 +83,6 @@ def test_tf32_is_off():
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(sensor="mono", enable_mapping=False, enable_loop_closing=False), "item 13"),
-    (dict(sensor="stereo", enable_mapping=False, enable_loop_closing=False), "item 12"),
     (dict(sensor="rgbd", enable_loop_closing=False, mapping_device="cpu"), "item 10"),
     (dict(sensor="rgbd", enable_mapping=False), "item 15"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, chunk=8), "item 11"),
@@ -109,6 +108,21 @@ def test_tracker_refuses_mapper_database_loop_closer():
     for kw in ("database", "loop_closer"):
         with pytest.raises(NotImplementedError):
             Tracker(_settings(), **{kw: object()}, device="cpu")
+
+
+def test_stereo_system_constructs_on_cpu():
+    s = SlamSystem(_settings(), "stereo", enable_loop_closing=False, device="cpu")
+    assert s.sensor == "stereo"
+    assert isinstance(s.local_mapper, LocalMapper)
+    assert s.local_mapper.n_tri_neighbors == min(s.settings.tpu.tri_neighbors_stereo, 15)
+    assert s.local_mapper._bf == s.settings.camera.bf
+
+
+def test_mono_still_raises():
+    with pytest.raises(NotImplementedError, match="monocular tracking.*item 13"):
+        SlamSystem(_settings(), "mono", enable_loop_closing=False, device="cpu")
+    with pytest.raises(ValueError, match="unknown sensor"):
+        SlamSystem(_settings(), "lidar", enable_loop_closing=False, device="cpu")
 
 
 def test_slice_system_constructs_on_cpu():
@@ -157,7 +171,8 @@ def test_cpu_tensors_take_the_plain_versions():
     b = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 8)).astype(np.int32))
     assert torch.equal(hamming.hamming_matrix(a, b), hamming._hamming_plain(a, b))
     assert set(kernels.LAUNCHES) == {
-        "fast_score_nms", "hamming_matrix", "ba_normal_equations", "ba_chi2"}
+        "fast_score_nms", "hamming_matrix", "projection_best2", "ba_normal_equations",
+        "ba_chi2"}
     assert set(kernels.LAUNCHES.values()) == {0}
 
 
@@ -169,6 +184,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.hamming_matrix_cuda(torch.zeros(2, 8, dtype=torch.int32),
                                     torch.zeros(2, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.projection_best2_cuda(
+            torch.zeros(2, 2), torch.ones(2), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, 8, dtype=torch.int32), torch.ones(2, dtype=torch.bool),
+            torch.zeros(2, 2), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, 8, dtype=torch.int32), torch.ones(2, dtype=torch.bool), 1)
     C, N = 2, 5
     ba = (torch.eye(4).repeat(C, 1, 1), torch.zeros(C, 3, N), torch.zeros(C, 2, N),
           torch.zeros(C, N), torch.ones(C, N), torch.ones(C, N, dtype=torch.bool))

@@ -1,13 +1,19 @@
-"""The reference's trajectory error on ``chip_smoke.py``'s sequence.
+"""The reference's trajectory error on ``chip_smoke.py``'s sequences.
 
-    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py            # RGB-D
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --stereo   # stereo
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
-database off), the configuration ``chip_smoke.py`` drives the port in, at
-the smoke run's settings (640x480, 1000 features, 8 levels, 128 keyframes,
-16384 points) on its 24-frame synthetic sequence (seed 0), and prints one
-JSON line: the ATE with mapping on, the keyframes created and the per-frame
-states.  ``chip_smoke.py``'s mapping-slice ATE limit is derived from it.
+database off), the configuration ``chip_smoke.py`` drives the port in, and
+prints one JSON line: the ATE with mapping on, the keyframes created and
+the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
+
+* RGB-D: the smoke run's bench settings (640x480, 1000 features, 8 levels,
+  128 keyframes, 16384 points) on its 24-frame sequence (seed 0).
+* ``--stereo``: the KITTI operating point of ``examples/run_matrix.py``
+  (1241x376, fx 718.856, bf 386.1448, th_depth 35, 2000 features, 8
+  levels, 2048 keypoints, 256 keyframes, 65536 points) on the smoke run's
+  24-frame stereo sequence (baseline bf / fx).
 """
 
 import json
@@ -25,6 +31,8 @@ from orbslam2_tpu.models.tracking import Tracker  # noqa: E402
 from orbslam2_tpu.utils import synthetic  # noqa: E402
 
 N_FRAMES = 24
+# chip_smoke.py's stereo sequence (STEREO_SEQ there).
+STEREO_SEQ = dict(n_points=3000, seed=1, radius=0.4, forward=0.8)
 
 
 def smoke_settings():
@@ -37,16 +45,35 @@ def smoke_settings():
     )
 
 
+def kitti_settings():
+    """chip_smoke.py's kitti_settings, in the reference's types."""
+    return Settings(
+        camera=CameraSettings(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+                              width=1241, height=376, bf=386.1448, th_depth=35.0),
+        orb=OrbSettings(n_features=2000, n_levels=8),
+        tpu=TpuSettings(max_keypoints=2048, max_keyframes=256, max_points=65536),
+    )
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
-    s = smoke_settings()
-    seq = synthetic.make_sequence(s.camera_model(), n_frames=N_FRAMES, n_points=1500,
-                                  with_depth=True, seed=0, radius=0.25, forward=0.5)
-    tr = Tracker(s, local_mapper=LocalMapper(s, sensor="rgbd"), database=None,
-                 loop_closer=None)
+    stereo = "--stereo" in sys.argv[1:]
+    s = kitti_settings() if stereo else smoke_settings()
+    cam = s.camera_model()
+    if stereo:
+        seq = synthetic.make_sequence(cam, n_frames=N_FRAMES,
+                                      stereo_baseline=s.camera.bf / s.camera.fx, **STEREO_SEQ)
+    else:
+        seq = synthetic.make_sequence(cam, n_frames=N_FRAMES, n_points=1500, with_depth=True,
+                                      seed=0, radius=0.25, forward=0.5)
+    tr = Tracker(s, local_mapper=LocalMapper(s, sensor="stereo" if stereo else "rgbd"),
+                 database=None, loop_closer=None)
     states = []
     for i in range(N_FRAMES):
-        tr.track_rgbd(seq.images[i], seq.depths[i], seq.timestamps[i])
+        if stereo:
+            tr.track_stereo(seq.images[i][0], seq.images[i][1], seq.timestamps[i])
+        else:
+            tr.track_rgbd(seq.images[i], seq.depths[i], seq.timestamps[i])
         states.append(int(tr.state))
     poses = tr.poses_wc()
     print(json.dumps({
