@@ -10,16 +10,23 @@ on failure (the script then exits non-zero and prints no result):
               the torch/CUDA versions
   2. build    compile the kernels from ``orbslam2_tpu_torch/csrc`` (one
               nvcc over all the sources)
-  3. K1       FAST-9 + NMS kernel against its plain version (torch.equal)
-              at the eight pyramid level shapes of a 640x480 frame, on noise
-              and on ragged shapes; CUDA-event medians of 20 runs
+  3. K1       FAST-9 + NMS kernel against its plain version (torch.equal),
+              one launch per image: the 8 pyramid levels of a 640x480 frame
+              and of a 1241x376 frame each in one call, noise, integer
+              noise, a ragged (33x129) and a tiny (7x7) image each alone and
+              mixed into one call, with the extractor's threshold at 0 and at
+              7; CUDA-event medians of 20 calls and device time per launch
   4. K2       packed-Hamming kernel against its plain version (torch.equal)
               at the tracker's shapes and ragged ones
   5. K3       fused projection best-2 against its plain version (torch.equal
               on index, best and second) at the projection searches' shapes
-              (4096 and 1024 sources x 1024 and 2048 targets) and ragged
-              ones, with level_dir None, -1, 0 and +1, on random, tie-heavy
-              and all-invalid inputs and on empty and boundary windows
+              (4096 and 1024 sources x 1024 and 2048 targets), ragged ones
+              and shapes aimed at the kernel's split (fewer than 32 targets,
+              targets not a multiple of its tile, sources not a multiple of
+              its rows per block), with level_dir None, -1, 0 and +1, on
+              random, tie-heavy and all-invalid inputs, on empty and
+              boundary windows and on rows whose first minimum lies in
+              different lanes and tiles; device time per launch
   6. K4/K5    bundle-adjustment kernels against their plain versions at the
               local-BA windows (C = 48 and 16 cameras x N = 1024) and a
               ragged shape (3 x 77), robust weights both ways, with a
@@ -29,31 +36,35 @@ on failure (the script then exits non-zero and prints no result):
               within 1e-5 relative
   7. slice    RGB-D tracking with mapping off, bench settings, 24 synthetic
               frames on the card: every frame OK, ATE <= 0.02 m, launch
-              counts (K3 at least twice a frame from frame 2 on), and
-              frames 0-3 agree with the same run on the CPU
+              counts (K1 once a frame, K3 at least twice a frame from frame
+              2 on), and frames 0-3 agree with the same run on the CPU
   8. mapping  the main path, ``SlamSystem(enable_mapping=True)``, on the
               same frames: every frame OK, ATE within ATE_LIMIT_MAPPING_M,
-              K1 8 x 24 launches, K2 more than with mapping off, K3 at
-              least twice a frame from frame 2 on, K4 15 and K5 19 per
-              keyframe created; tracking agrees with the CPU through the
-              frame after the first keyframe, and each mapping pass, run
-              again on the CPU from the card's input map, gives the same
-              map within MAP_TOL
+              K1 once a frame, K2 more than with mapping off, K3 at least
+              twice a frame from frame 2 on, K4 15 and K5 19 per keyframe
+              created; tracking agrees with the CPU through the frame after
+              the first keyframe, and each mapping pass, run again on the
+              CPU from the card's input map, gives the same map within
+              MAP_TOL
   9. timing   with mapping off and on: frames/s, extraction ms/frame, host
               syncs per frame (and per keyframe), mapping ms per keyframe,
               local-BA LM iterations/s at 32+16 cameras, profiler windows
-              (device busy, idle share, launches per frame, each kernel's
-              device time per launch), wall and device time per call of
-              each layer of a tracking step, and per pass of each stage of
-              mapping (its profiler ranges)
+              (device busy, idle share, launches per frame, K1's device time
+              per frame, each kernel's device time per launch and the share
+              of its bound), wall and device time per call of each layer of
+              a tracking step, and per pass of each stage of mapping (its
+              profiler ranges); the timed mapping-on pass must repeat phase
+              8's trajectory bit for bit, with the same keyframe and point
+              counts
  10. stereo   ``SlamSystem(sensor="stereo", enable_mapping=True)`` at the
               KITTI operating point (1241x376, 2000 features) on 24
-              synthetic stereo pairs, checked with deterministic
-              algorithms: every frame OK, ATE within
-              ATE_LIMIT_STEREO_M, K1 16 launches per frame, K3 at least
-              twice a frame from frame 2 on, K4 15 and K5 19 per keyframe;
-              tracking agrees with the CPU through the frame after the
-              first keyframe; then, with the default algorithms, frames/s,
+              synthetic stereo pairs, with PyTorch's default algorithms:
+              every frame OK, ATE within ATE_LIMIT_STEREO_M, K1 2 launches
+              per frame, K3 at least twice a frame from frame 2 on, K4 15
+              and K5 19 per keyframe; tracking agrees with the CPU through
+              the frame after the first keyframe; then a timed pass of the
+              same frames, which must repeat the checked trajectory bit for
+              bit, with the same keyframe and point counts, frames/s,
               extraction of the pair and stereo matching ms/frame and a
               profile window
 
@@ -110,30 +121,51 @@ POSE_TOL_RAD = 1e-3
 MAP_TOL = {"kf_pose_cw": (1e-4, 0.0), "pt_pos": (1e-3, 1e-3), "pt_normal": (1e-5, 0.0),
            "pt_min_dist": (1e-5, 1e-5), "pt_max_dist": (1e-5, 1e-5)}
 
-# Least-time bounds (H100 SXM data sheet): HBM at 3.35 TB/s, float32
-# outside the tensor cores at 67 TFLOP/s (an FMA counts two).  Operations
-# per element, counting each add, multiply, min, max, compare, select,
-# divide and square root as one, from the kernels' sources:
-#   K1  16 differences, 16 arcs x (1 negation + 8 x (2 min + 1 negation)
-#       + 2 max), a clamp, 8 NMS compares and 4 flag tests: 460 per pixel
-#   K2  8 x (XOR + popcount + add): 24 per pair
+# Least-time bounds.  Bytes: HBM at 3.35 TB/s (H100 SXM data sheet), each
+# input read once and each output written once.  Operations: each class at
+# its own rate per SM and clock on compute capability 9.0, from the CUDA C++
+# Programming Guide's table "Throughput of Native Arithmetic Instructions"
+# (operations per clock cycle per multiprocessor): 128 for 32-bit floating-
+# point add, multiply and multiply-add ("f32"), 64 for 32-bit integer add and
+# subtract, compare / minimum / maximum and bitwise AND / OR / XOR ("alu"),
+# 16 for population count ("popc"); over SMS multiprocessors at the card's
+# maximum SM clock (nvidia-smi clocks.max.sm; 1980 MHz on an H100 SXM).  The
+# classes run on separate units (the float32 pipes, the integer pipe, the
+# unit that counts bits), so the least time for the operations is the
+# largest class's time.  Operations counted from the kernels' sources:
+#   K1  per pixel: 64 min and 64 max over the arcs (pairs, quads, octets,
+#       the ninth), 16 max and 16 min over the 16 starts, the combine and
+#       the clamp (162 alu); 2 float32 subtractions; the 3x3 max (4) and its
+#       compare, 4 flag tests, the threshold's compare and select (11 alu)
+#   K2  per pair: 8 XOR + 8 popcounts + 8 adds
 #   K3  counted from this run's inputs: for each valid source row, the
-#       target's valid flag (1 per target), the octave gate of valid
-#       targets (difference + compare: 2), the window of those in the gate
-#       (2 subtractions, 2 products, an add and a compare: 6) and, for each
-#       candidate, 8 x (XOR + popcount + add) and the two best-2 compares
-#       (26); invalid rows skip the scan
+#       target's valid flag (1 alu per target); the octave gate of valid
+#       targets (difference + compare: 2 alu); the window of those in the
+#       gate (2 subtractions, 2 products and an add: 5 f32; a compare: 1
+#       alu); for each candidate, 8 XOR + 8 adds + the two best-2 compares
+#       (18 alu) and 8 popcounts; invalid rows skip the scan
 #   K4  projection and residual ~40, weight ~9, Jacobian rows ~45, H_pp 36,
-#       b_p 18, G 108, H_cc 147, b_c 42, chi2 sum 2: 450 per observation
-#   K5  projection and residual ~40, chi2 sum 2: 42 per observation
+#       b_p 18, G 108, H_cc 147, b_c 42, chi2 sum 2: 450 f32 per
+#       observation, each add and multiply counted at the add rate (fused
+#       into FMAs, half as many instructions; K4 and K5 are bound by bytes
+#       either way)
+#   K5  projection and residual ~40, chi2 sum 2: 42 f32 per observation
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-K1_OPS_PER_PX = 460
-K2_OPS_PER_PAIR = 24
-K3_OPS = (1, 2, 6, 26)  # per target, gated target, windowed target, candidate
-K3_SHAPES = [(4096, 1024), (1024, 1024), (4096, 2048), (2048, 2048), (77, 300), (1, 1)]
-K4_OPS_PER_OBS = 450
-K5_OPS_PER_OBS = 42
+SMS = 132
+RATE_PER_SM_CLK = {"f32": 128, "alu": 64, "popc": 16}
+K1_OPS_PER_PX = {"f32": 2, "alu": 173}
+K2_OPS_PER_PAIR = {"alu": 16, "popc": 8}
+# per target of a valid row, live pair, gated pair, candidate
+K3_OPS = ({"alu": 1}, {"alu": 2}, {"f32": 5, "alu": 1}, {"alu": 18, "popc": 8})
+K3_SHAPES = [(4096, 1024), (1024, 1024), (4096, 2048), (2048, 2048), (77, 300), (1, 1),
+             # aimed at the split: fewer than 32 targets; targets not a
+             # multiple of the 256-target tile; sources not a multiple of
+             # the 16 or 4 rows of a block
+             (50, 20), (4095, 1000), (1023, 300)]
+K4_OPS_PER_OBS = {"f32": 450}
+K5_OPS_PER_OBS = {"f32": 42}
+# The card's maximum SM clock in Hz, read in phase 1.
+CLOCK_HZ = None
 
 
 def phase(name: str, msg: str) -> None:
@@ -148,12 +180,58 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of the memory and the arithmetic
-    time."""
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scaled(ops: dict, n: float) -> dict:
+    return {c: v * n for c, v in ops.items()}
+
+
+def added(*ops: dict) -> dict:
+    out = collections.Counter()
+    for o in ops:
+        out.update(o)
+    return dict(out)
+
+
+def bound(n_bytes: float, ops: dict):
+    """(bound_ms, bound_by): the larger of the memory time and the
+    operation time, the largest over the classes of ``ops`` ({class: count})
+    of the count at the class's rate."""
     t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = max(n / (RATE_PER_SM_CLK[c] * SMS * CLOCK_HZ) for c, n in ops.items()) * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(levels):
+    """K1's least time for one launch over ``levels``: each pixel read once
+    and written once, K1_OPS_PER_PX each."""
+    px = sum(x.numel() for x in levels)
+    return bound(px * 8, scaled(K1_OPS_PER_PX, px))
+
+
+def device_us(fn, tag: str, n: int = 10) -> float:
+    """Median device time per launch of the kernels whose name holds
+    ``tag`` over ``n`` calls of ``fn``, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and tag in e.name]
+    if len(times) < n:
+        raise AssertionError(f"the profiler saw {len(times)} launches of {tag} in {n} calls")
+    return statistics.median(times)
 
 
 def time_ms(fn, n: int = 20) -> float:
@@ -376,14 +454,20 @@ def check_ba(cam, C, N, gen):
     return problems[7], k4_abs, k5_abs
 
 
+def k2_bound(na, nb):
+    """K2's least time at (na, nb): the descriptors read once, the int32
+    matrix written once, K2_OPS_PER_PAIR per pair."""
+    return bound((na + nb) * 32 + na * nb * 4, scaled(K2_OPS_PER_PAIR, na * nb))
+
+
 def ba_bounds(C, N):
     """(K4 bound, K5 bound) at (C, N): inputs X, uv, ur, inv_s2 float32 and
     the mask byte per observation plus the poses; K4 writes the 32-row pack
     and the per-camera blocks, K5 a chi2 per observation and the sums."""
     obs = C * N
     read = obs * (3 + 2 + 1 + 1) * 4 + obs + C * 16 * 4
-    k4 = bound(read + obs * 32 * 4 + C * (36 + 6 + 1) * 4, obs * K4_OPS_PER_OBS)
-    k5 = bound(read + obs * 4 + C * 4, obs * K5_OPS_PER_OBS)
+    k4 = bound(read + obs * 32 * 4 + C * (36 + 6 + 1) * 4, scaled(K4_OPS_PER_OBS, obs))
+    k5 = bound(read + obs * 4 + C * 4, scaled(K5_OPS_PER_OBS, obs))
     return k4, k5
 
 
@@ -404,7 +488,11 @@ def k3_inputs(M, N, gen, kind):
     equal distances); "invalid" (no valid source or target); "empty" (a
     quarter of the windows of radius 0 and a quarter whose squared radius
     is exactly the squared distance to one target, computed as the plain
-    version rounds it)."""
+    version rounds it); "lanes" (every target in every window and octave
+    band, each row's descriptor planted at one column of the second
+    256-target tile and one of the third, or at two random columns where
+    there are fewer tiles: first minima in different lanes and tiles, tied
+    by a later copy)."""
     import torch
 
     def rnd(*shape):
@@ -429,6 +517,16 @@ def k3_inputs(M, N, gen, kind):
         rr2[:q] = 0.0
         d = uv - xy[torch.randint(0, N, (M,), generator=gen)]
         rr2[q:2 * q] = (d * d).sum(-1)[q:2 * q]
+    if kind == "lanes":
+        rr2[:] = 1e7
+        la[:] = 0
+        lb[:] = 0
+        lo, mid = (256, 512) if N > 512 else (0, N)
+        cols = torch.stack([lo + torch.randint(0, mid - lo, (M,), generator=gen),
+                            mid + torch.randint(0, max(N - mid, 1), (M,), generator=gen)
+                            if N > 512 else torch.randint(0, N, (M,), generator=gen)], 1)
+        db[cols.reshape(-1)] = da.repeat_interleave(2, 0)
+        vb[cols.reshape(-1)] = True
     return [t.contiguous().cuda() for t in (uv, rr2, la, da, va, xy, lb, db, vb)]
 
 
@@ -450,15 +548,16 @@ def k3_bound(args, level_dir):
     live = va[:, None] & vb[None, :]
     counts = [int(va.sum()) * N, int(live.sum()), int((live & gate).sum()),
               int((live & gate & win).sum())]
-    return bound(n_bytes, sum(c * k for c, k in zip(counts, K3_OPS))), counts[3]
+    return bound(n_bytes, added(*(scaled(k, c) for c, k in zip(counts, K3_OPS)))), counts[3]
 
 
 def check_k3(gen, card):
     """K3 against its plain version (torch.equal on all three outputs) at
     K3_SHAPES, with level_dir None, -1, 0 and +1, on each kind of
-    k3_inputs; CUDA-event medians of the kernel and of the plain version
-    on the random inputs.  Returns ({shape: (ms, plain_ms, bound)}, the
-    largest absolute difference of any output)."""
+    k3_inputs; CUDA-event medians of the kernel and of the plain version,
+    and the kernel's device time per launch, on the random inputs.  Returns
+    ({shape: (ms, plain_ms, bound, device_us)}, the largest absolute
+    difference of any output)."""
     import torch
 
     from orbslam2_tpu_torch.ops import matcher
@@ -466,7 +565,7 @@ def check_k3(gen, card):
     times, err = {}, 0
     for M, N in K3_SHAPES:
         n_cmp = n_cand = 0
-        for kind in ("random", "ties", "invalid", "empty"):
+        for kind in ("random", "ties", "invalid", "empty", "lanes"):
             args = k3_inputs(M, N, gen, kind)
             for d in (None, -1, 0, 1):
                 ld = None if d is None else torch.tensor(d, dtype=torch.int32, device="cuda")
@@ -484,11 +583,13 @@ def check_k3(gen, card):
         args = k3_inputs(M, N, gen, "random")
         ms = time_ms(lambda: matcher.projection_best2(*args, 1))
         plain_ms = time_ms(lambda: matcher._projection_best2_plain(*args, 1))
+        dev_us = device_us(lambda: matcher.projection_best2(*args, 1), "projection_best2_kernel")
         b, pairs = k3_bound(args, None)
-        times[(M, N)] = (ms, plain_ms, b)
+        times[(M, N)] = (ms, plain_ms, b, dev_us)
         phase("K3", f"{card}: {M}x{N}: equal in {n_cmp} comparisons ({n_cand} rows with a "
-              f"candidate); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.5f} ms "
-              f"({b[1]}, {pairs} candidate pairs)")
+              f"candidate); kernel {ms:.4f} ms (device {dev_us:.2f} us/launch), plain "
+              f"{plain_ms:.4f} ms, bound {b[0] * 1e3:.3f} us ({b[1]}, {pairs} candidate pairs), "
+              f"share of the bound {b[0] * 1e3 / dev_us:.3f}")
     return times, err
 
 
@@ -511,41 +612,99 @@ def device_ops(prof):
             and not e.name.startswith(STAGE_PREFIX)]
 
 
+def kernel_label(name: str):
+    """The hand-written kernel a profiler event belongs to, or None."""
+    return next((t for t in KERNEL_TAGS if t in name), None)
+
+
+# The wrapper of each hand-written kernel in orbslam2_tpu_torch.kernels,
+# the shape of a launch from its arguments, and the bound of the launch
+# (K3's from its inputs, computed after the window).
+WRAPPERS = {
+    "fast_nms_kernel": ("fast_score_nms_levels_cuda", lambda levels, *_: len(levels),
+                        lambda levels, *_: k1_bound(levels)),
+    "hamming_kernel": ("hamming_matrix_cuda", lambda a, b: (a.shape[0], b.shape[0]),
+                       lambda a, b: k2_bound(a.shape[0], b.shape[0])),
+    "projection_best2_kernel": (
+        "projection_best2_cuda", lambda *a: (a[3].shape[0], a[7].shape[0]),
+        lambda *a: k3_bound(a[:9], None if a[10] is None else int(a[10]))[0]),
+    "ba_normal_equations_kernel": ("ba_normal_equations_cuda", lambda p, X, *_: X.shape[0],
+                                   lambda p, X, *_: ba_bounds(X.shape[0], X.shape[2])[0]),
+    "ba_chi2_kernel": ("ba_chi2_cuda", lambda p, X, *_: X.shape[0],
+                       lambda p, X, *_: ba_bounds(X.shape[0], X.shape[2])[1]),
+}
+
+
 def profile_window(system, seq, frames, card, label):
     """torch.profiler over ``frames`` of a running system: device busy time
-    and idle share per frame, kernel launches per frame, and the device time
-    of each launch of the hand-written kernels.  Returns (the median device
-    us per launch of each hand-written kernel, the profile)."""
+    and idle share per frame, kernel launches per frame, and for each
+    hand-written kernel its launches per frame, device time per launch and
+    the bound of the launches it made, each from its own arguments (a
+    kernel's launches run in the order of its wrapper's calls, on one
+    stream), with the share of the bound; K3 per shape, K1 also per frame.
+    Returns ({kernel tag: (launches, mean device us, mean bound us)}, the
+    profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from orbslam2_tpu_torch import kernels
+
     inputs = frame_inputs(seq, frames, "cuda")
     kc0 = system.tracker.metrics["keyframes_created"]
+    calls = {tag: [] for tag in WRAPPERS}
+    originals = {tag: getattr(kernels, name) for tag, (name, _, _) in WRAPPERS.items()}
+
+    def recording(tag):
+        def call(*args):
+            calls[tag].append(args)
+            return originals[tag](*args)
+        return call
+
+    for tag, (name, _, _) in WRAPPERS.items():
+        setattr(kernels, name, recording(tag))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for a, b in inputs:
-            track(system, a, b, 0.0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for a, b in inputs:
+                track(system, a, b, 0.0)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for tag, (name, _, _) in WRAPPERS.items():
+            setattr(kernels, name, originals[tag])
     n = len(frames)
     dev = device_ops(prof)
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    per_kernel = {}
-    for e in dev:
-        for tag in KERNEL_TAGS:
-            if tag in e.name:
-                per_kernel.setdefault(tag, []).append(e.time_range.elapsed_us())
-    kern = ", ".join(
-        f"{tag} {statistics.median(v):.2f} us/launch x {len(v) / n:.1f}/frame"
-        for tag, v in sorted(per_kernel.items())
-    )
     kc = system.tracker.metrics["keyframes_created"] - kc0
     phase("profile", f"{card}: {label}: {n} frames ({kc} keyframes): wall "
           f"{wall_us / n / 1e3:.2f} ms/frame, device busy {busy_us / n / 1e3:.2f} ms/frame, "
-          f"idle share {1 - busy_us / wall_us:.3f}, {len(dev) / n:.0f} kernel launches/frame; "
-          f"{kern}")
-    return {tag: statistics.median(v) for tag, v in per_kernel.items()}, prof
+          f"idle share {1 - busy_us / wall_us:.3f}, {len(dev) / n:.0f} kernel launches/frame")
+    stats = {}
+    for tag, (_, shape_of, bound_of) in WRAPPERS.items():
+        events = sorted((e for e in dev if kernel_label(e.name) == tag),
+                        key=lambda e: e.time_range.start)
+        if len(events) != len(calls[tag]):
+            raise AssertionError(f"{label}: {len(events)} launches of {tag} in the profile, "
+                                 f"{len(calls[tag])} through its wrapper")
+        if not events:
+            continue
+        us = [e.time_range.elapsed_us() for e in events]
+        b_us = [bound_of(*args)[0] * 1e3 for args in calls[tag]]
+        stats[tag] = (len(us), statistics.mean(us), statistics.mean(b_us))
+        groups = {"all": list(range(len(us)))}
+        if tag == "projection_best2_kernel":
+            groups = {}
+            for i, args in enumerate(calls[tag]):
+                groups.setdefault("%dx%d" % shape_of(*args), []).append(i)
+        for name, idx in groups.items():
+            d, b = [us[i] for i in idx], [b_us[i] for i in idx]
+            phase("profile", f"{card}: {label}: {tag}" + (f" at {name}" if name != "all" else "") +
+                  f": {len(d) / n:.1f} launches/frame, device {statistics.median(d):.2f} us/launch "
+                  f"(median; mean {statistics.mean(d):.2f}), bound {statistics.mean(b):.3f} "
+                  f"us/launch (mean over these launches), share {sum(b) / sum(d):.3f}" +
+                  (f"; {sum(d) / n:.2f} us per frame" if tag == "fast_nms_kernel" else ""))
+    return stats, prof
 
 
 def mapping_stage_lines(prof, card: str) -> None:
@@ -561,8 +720,7 @@ def mapping_stage_lines(prof, card: str) -> None:
 
     from orbslam2_tpu_torch.models.local_mapping import STAGE_PREFIX
 
-    def own(name):
-        return next((tag for tag in KERNEL_TAGS if tag in name), None)
+    own = kernel_label
 
     def ops(e):
         mine = [k.duration for k in e.kernels
@@ -768,18 +926,46 @@ def stereo_sequence():
     return settings, seq
 
 
-def stereo_check(settings, seq):
-    """The stereo slice with mapping at the KITTI operating point: 24
-    frames, every one OK, ATE within ATE_LIMIT_STEREO_M, K1 16 launches
-    per frame, K3 at least 2 per frame from frame 2 on, K4 15 and K5 19 per
-    keyframe created; tracking equal to the CPU run through the frame after
-    the first mapped keyframe.  Returns (the launch counts of the run, the
-    frames that created a keyframe).  The caller turns deterministic
-    algorithms on."""
+def run_summary(system, seq):
+    """(trajectory (F, 4, 4), ATE, keyframes created, valid keyframes,
+    valid points) of a finished run."""
     import numpy as np
 
-    from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.utils import synthetic
+
+    poses = system.poses_wc()
+    if not np.isfinite(poses).all() or poses.shape != (N_FRAMES, 4, 4):
+        raise AssertionError(f"bad trajectory: shape {poses.shape}")
+    m = system.metrics()
+    return (poses, synthetic.ate_rmse(poses, seq.poses_wc),
+            system.tracker.metrics["keyframes_created"], m["n_keyframes"], m["n_points"])
+
+
+def check_repeat(label, first, again):
+    """Two runs of one path in this process, PyTorch's default algorithms:
+    the same trajectory bit for bit and the same keyframe and point counts
+    (``run_summary`` of each)."""
+    import numpy as np
+
+    poses, ate, kc, n_kf, n_pt = first
+    poses2, ate2, kc2, n_kf2, n_pt2 = again
+    phase("determinism", f"{label}: run 1 ATE {ate:.6f} m, {kc} keyframes created, {n_kf} valid, "
+          f"{n_pt} points; run 2 ATE {ate2:.6f} m, {kc2} created, {n_kf2} valid, {n_pt2} points")
+    if not np.array_equal(poses, poses2) or (kc, n_kf, n_pt) != (kc2, n_kf2, n_pt2):
+        raise AssertionError(f"{label}: two runs differ: max |dT| "
+                             f"{float(np.abs(poses - poses2).max())}, keyframes {kc} / {kc2}, "
+                             f"points {n_pt} / {n_pt2}")
+    phase("determinism", f"{label}: the two runs are bit-identical")
+
+
+def stereo_check(settings, seq):
+    """The stereo slice with mapping at the KITTI operating point: 24
+    frames, every one OK, ATE within ATE_LIMIT_STEREO_M, K1 2 launches per
+    frame (one per image), K3 at least 2 per frame from frame 2 on, K4 15
+    and K5 19 per keyframe created; tracking equal to the CPU run through
+    the frame after the first mapped keyframe.  Returns (the launch counts
+    of the run, the frames that created a keyframe, its run_summary)."""
+    from orbslam2_tpu_torch import kernels
 
     system = make_system(settings, "cuda", True, "stereo")
     kc_log = []
@@ -792,24 +978,21 @@ def stereo_check(settings, seq):
     states, _, poses_cw, k3 = drive(system, seq, "cuda", range(N_FRAMES), on_frame,
                                     keep_poses=N_FRAMES)
     launches = dict(kernels.LAUNCHES)
-    poses = system.poses_wc()
-    if not np.isfinite(poses).all() or poses.shape != (N_FRAMES, 4, 4):
-        raise AssertionError(f"bad stereo trajectory: shape {poses.shape}")
-    ate = synthetic.ate_rmse(poses, seq.poses_wc)
-    kc = system.tracker.metrics["keyframes_created"]
+    summary = run_summary(system, seq)
+    _, ate, kc, n_kf, n_pt = summary
     n_ok = sum(s == 1 for s in states)
-    m = system.metrics()
     phase("stereo", f"{n_ok}/{N_FRAMES} frames OK, ATE {ate:.6f} m (reference "
           f"{ATE_REF_STEREO_M:.6f} m, limit {ATE_LIMIT_STEREO_M:.6f} m), {kc} keyframes "
-          f"created, {m['n_keyframes']} valid, {m['n_points']} points, launches {launches}")
+          f"created, {n_kf} valid, {n_pt} points, launches {launches}")
     if n_ok != N_FRAMES:
         raise AssertionError(f"stereo frames not OK: {states}")
     if not ate <= ATE_LIMIT_STEREO_M:
         raise AssertionError(f"stereo ATE {ate} m > {ATE_LIMIT_STEREO_M} m")
     if kc < 1:
         raise AssertionError("the stereo slice created no keyframe")
-    if launches["fast_score_nms"] != 2 * settings.orb.n_levels * N_FRAMES:
-        raise AssertionError(f"K1 launched {launches['fast_score_nms']} times in the stereo run")
+    if launches["fast_score_nms"] != 2 * N_FRAMES:
+        raise AssertionError(f"K1 launched {launches['fast_score_nms']} times in the stereo run, "
+                             f"not once per image ({2 * N_FRAMES})")
     check_k3_per_frame(k3, "stereo")
     if launches["hamming_matrix"] < N_FRAMES:
         raise AssertionError(f"K2 launched {launches['hamming_matrix']} times in the stereo "
@@ -824,13 +1007,15 @@ def stereo_check(settings, seq):
         raise AssertionError(f"the stereo CPU run of frames 0-{n_cmp - 1} mapped no keyframe")
     phase("stereo", f"frames 0-{n_cmp - 1} CPU vs GPU ({cpu_kc} keyframe mapped): states "
           f"equal, max |dt| {dt:.3e} m, max rotation {dr:.3e} rad")
-    return launches, [i for i in range(N_FRAMES) if kc_log[i] > (kc_log[i - 1] if i else 0)]
+    kf_frames = [i for i in range(N_FRAMES) if kc_log[i] > (kc_log[i - 1] if i else 0)]
+    return launches, kf_frames, summary
 
 
-def stereo_timing(settings, seq, kf_frames, card):
-    """The stereo path's times with PyTorch's default algorithms: one timed
-    pass of the 24 frames with mapping, the pair's extraction and the
-    matching alone on 10 frames, and a profile window over 5 frames."""
+def stereo_timing(settings, seq, kf_frames, checked, card):
+    """The stereo path timed: one pass of the 24 frames with mapping, which
+    must repeat the checked pass (``checked``, its run_summary) bit for
+    bit; the pair's extraction and the matching alone on 10 frames; and a
+    profile window over 5 frames, whose kernel statistics it returns."""
     import torch
 
     from orbslam2_tpu_torch.ops import stereo as stereo_ops
@@ -838,6 +1023,7 @@ def stereo_timing(settings, seq, kf_frames, card):
     cam = settings.camera_model()
     system, _, secs, _, _ = run_slice(settings, seq, "cuda", N_FRAMES, mapping=True,
                                       sensor="stereo")
+    check_repeat("stereo with mapping", checked, run_summary(system, seq))
     m = system.metrics()
     ext = system.tracker.extractor
     pairs = frame_inputs(seq, range(10), "cuda")
@@ -867,10 +1053,8 @@ def stereo_timing(settings, seq, kf_frames, card):
     start = min(max(max(kf_frames) - 2, 2), N_FRAMES - 5)
     psys = make_system(settings, "cuda", True, "stereo")
     drive(psys, seq, "cuda", range(start))
-    per_launch, _ = profile_window(psys, seq, range(start, start + 5), card,
-                                   f"stereo, frames {start}-{start + 4}")
-    phase("profile", f"{card}: stereo: K3 "
-          f"{per_launch.get('projection_best2_kernel', float('nan')):.2f} us/launch (device)")
+    return profile_window(psys, seq, range(start, start + 5), card,
+                          f"stereo, frames {start}-{start + 4}")[0]
 
 
 def main() -> int:
@@ -878,14 +1062,16 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
-    # cuBLAS needs a fixed workspace to be deterministic (phase 10).
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs one GPU")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    phase("device", f"{card} | torch {torch.__version__} | CUDA {torch.version.cuda} | {kind}")
+    global CLOCK_HZ
+    CLOCK_HZ = max_sm_clock_hz()
+    phase("device", f"{card} | torch {torch.__version__} | CUDA {torch.version.cuda} | {kind} | "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, max SM clock "
+          f"{CLOCK_HZ / 1e6:.0f} MHz")
 
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.ops import fast, hamming
@@ -906,40 +1092,59 @@ def main() -> int:
         radius=0.25, forward=0.5,
     )
     phase("data", f"{N_FRAMES} frames rendered in {time.perf_counter() - t0:.2f} s")
+    stereo_settings, stereo_seq = stereo_sequence()
 
     # 3. K1 against plain ---------------------------------------------------
-    frame0 = torch.as_tensor(seq.images[0], device="cuda")
-    levels = pyr_ops.build_pyramid(frame0, settings.orb.n_levels, settings.orb.scale_factor)
+    def pyramid(image, s):
+        return [lv.contiguous() for lv in pyr_ops.build_pyramid(
+            torch.as_tensor(image, device="cuda"), s.orb.n_levels, s.orb.scale_factor)]
+
+    levels = pyramid(seq.images[0], settings)
+    stereo_levels = pyramid(stereo_seq.images[0][0], stereo_settings)
     gen = torch.Generator(device="cpu").manual_seed(0)
-    k1_inputs = [(f"level{i}", lv.contiguous()) for i, lv in enumerate(levels)]
-    k1_inputs += [
-        ("noise", (torch.rand(480, 640, generator=gen) * 255).cuda()),
-        ("noise_int", torch.randint(0, 256, (480, 640), generator=gen).float().cuda()),
-        ("ragged", (torch.rand(33, 129, generator=gen) * 255).cuda()),
-        ("tiny", (torch.rand(7, 7, generator=gen) * 255).cuda()),
-    ]
+    odd = {
+        "noise": (torch.rand(480, 640, generator=gen) * 255).cuda(),
+        "noise_int": torch.randint(0, 256, (480, 640), generator=gen).float().cuda(),
+        "ragged": (torch.rand(33, 129, generator=gen) * 255).cuda(),
+        "tiny": (torch.rand(7, 7, generator=gen) * 255).cuda(),
+    }
+    k1_cases = {"640x480 frame, 8 levels": levels, "1241x376 frame, 8 levels": stereo_levels}
+    k1_cases.update({name: [x] for name, x in odd.items()})
+    k1_cases["mixed: " + ", ".join(odd)] = list(odd.values())
+
+    def k1_plain(xs, min_th):
+        out = []
+        for x in xs:
+            s = fast.nms3x3(fast.fast_score(x))
+            out.append(torch.where(s >= min_th, s, torch.zeros_like(s)))
+        return out
+
     k1_err = 0.0
-    k1_ms = k1_plain_ms = 0.0
-    for name, x in k1_inputs:
-        got = fast.fast_score_nms(x)
-        want = fast.nms3x3(fast.fast_score(x))
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K1 differs from plain at {name} {tuple(x.shape)}: "
-                f"{int((got != want).sum())} pixels"
-            )
-        k1_err = max(k1_err, float((got - want).abs().max()))
-        ms = time_ms(lambda: fast.fast_score_nms(x))
-        plain_ms = time_ms(lambda: fast.nms3x3(fast.fast_score(x)))
-        if name.startswith("level"):
-            k1_ms += ms
-            k1_plain_ms += plain_ms
-        phase("K1", f"{name} {tuple(x.shape)} equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    k1_px = sum(lv.numel() for lv in levels)
-    k1_bound = bound(k1_px * 8, k1_px * K1_OPS_PER_PX)
-    phase("K1", f"8 levels of a frame ({k1_px} px): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms, bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+    min_th_cfg = float(settings.orb.min_th_fast)
+    for min_th in sorted({0.0, min_th_cfg}):
+        for name, xs in k1_cases.items():
+            got = fast.fast_score_nms_levels(xs, min_th)
+            want = k1_plain(xs, min_th)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1 differs from plain at {name}, image {i} "
+                                         f"{tuple(w.shape)}, min_th {min_th}: "
+                                         f"{int((g != w).sum())} pixels")
+                k1_err = max(k1_err, float((g - w).abs().max()))
+            phase("K1", f"{name} (one call, min_th {min_th:g}): equal, "
+                  f"{sum(int((w > 0).sum()) for w in want)} corners")
+    k1 = {}
+    for name, xs in (("640x480", levels), ("1241x376", stereo_levels)):
+        ms = time_ms(lambda: fast.fast_score_nms_levels(xs, min_th_cfg))
+        plain_ms = time_ms(lambda: k1_plain(xs, min_th_cfg))
+        dev_us = device_us(lambda: fast.fast_score_nms_levels(xs, min_th_cfg), "fast_nms_kernel")
+        b = k1_bound(xs)
+        k1[name] = (ms, plain_ms, b, dev_us)
+        phase("K1", f"{card}: the 8 levels of a {name} frame ({sum(x.numel() for x in xs)} px) "
+              f"in one launch: kernel {ms:.4f} ms (device {dev_us:.2f} us/launch), plain "
+              f"{plain_ms:.4f} ms, bound {b[0] * 1e3:.3f} us ({b[1]}), share of the bound "
+              f"{b[0] * 1e3 / dev_us:.3f}")
 
     # 4. K2 against plain ---------------------------------------------------
     k2_err = 0.0
@@ -957,10 +1162,12 @@ def main() -> int:
         plain_ms = time_ms(lambda: hamming._hamming_plain(a, b))
         if (na, nb) == k2_shape:
             k2_ms, k2_plain_ms = ms, plain_ms
+            k2_us = device_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
         phase("K2", f"{na}x{nb} equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     na, nb = k2_shape
-    k2_bound = bound((na + nb) * 32 + na * nb * 4, na * nb * K2_OPS_PER_PAIR)
-    phase("K2", f"bound at {na}x{nb}: {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+    k2_bnd = k2_bound(na, nb)
+    phase("K2", f"{card}: at {na}x{nb}: device {k2_us:.2f} us/launch, bound "
+          f"{k2_bnd[0] * 1e3:.3f} us ({k2_bnd[1]}), share {k2_bnd[0] * 1e3 / k2_us:.3f}")
 
     # 5. K3 against plain ---------------------------------------------------
     k3_times, k3_err = check_k3(gen, card)
@@ -977,12 +1184,16 @@ def main() -> int:
             t = (time_ms(lambda: bk.ba_normal_equations(*args, cam, True)),
                  time_ms(lambda: bk._ba_normal_equations_plain(*args, cam, True)),
                  time_ms(lambda: bk.ba_chi2(*args, cam)),
-                 time_ms(lambda: bk._ba_chi2_plain(*args, cam)))
+                 time_ms(lambda: bk._ba_chi2_plain(*args, cam)),
+                 device_us(lambda: bk.ba_normal_equations(*args, cam, True),
+                           "ba_normal_equations_kernel"),
+                 device_us(lambda: bk.ba_chi2(*args, cam), "ba_chi2_kernel"))
             ba_times[C] = t
             b4, b5 = ba_bounds(C, N)
-            phase("K4/K5", f"C={C} N={N}: K4 kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
-                  f"{b4[0]:.5f} ms ({b4[1]}); K5 kernel {t[2]:.4f} ms, plain {t[3]:.4f} ms, "
-                  f"bound {b5[0]:.5f} ms ({b5[1]})")
+            phase("K4/K5", f"{card}: C={C} N={N}: K4 kernel {t[0]:.4f} ms (device {t[4]:.2f} "
+                  f"us), plain {t[1]:.4f} ms, bound {b4[0] * 1e3:.3f} us ({b4[1]}); K5 kernel "
+                  f"{t[2]:.4f} ms (device {t[5]:.2f} us), plain {t[3]:.4f} ms, bound "
+                  f"{b5[0] * 1e3:.3f} us ({b5[1]})")
 
     # 7. the slice with mapping off -------------------------------------------
     kernels.reset_launch_counts()
@@ -1001,8 +1212,9 @@ def main() -> int:
         raise AssertionError(f"frames not OK: {states}")
     if not ate <= ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate} m > {ATE_LIMIT_M} m")
-    if launches_off["fast_score_nms"] != settings.orb.n_levels * N_FRAMES:
-        raise AssertionError(f"K1 launched {launches_off['fast_score_nms']} times")
+    if launches_off["fast_score_nms"] != N_FRAMES:
+        raise AssertionError(f"K1 launched {launches_off['fast_score_nms']} times, not once "
+                             f"per frame ({N_FRAMES})")
     check_k3_per_frame(k3_off, "mapping off")
     phase("slice", f"mapping off: K2 {launches_off['hamming_matrix']} + K3 "
           f"{launches_off['projection_best2']} = "
@@ -1059,25 +1271,22 @@ def main() -> int:
     sync_sites = collections.Counter(
         f"{os.path.relpath(w.filename, root)}:{w.lineno}"
         for w in caught if "synchroniz" in str(w.message))
-    mposes = msystem.poses_wc()
-    if not np.isfinite(mposes).all() or mposes.shape != (N_FRAMES, 4, 4):
-        raise AssertionError(f"bad trajectory with mapping: shape {mposes.shape}")
-    m_ate = synthetic.ate_rmse(mposes, seq.poses_wc)
-    kc = msystem.tracker.metrics["keyframes_created"]
+    mapping_run = run_summary(msystem, seq)
+    _, m_ate, kc, m_kf, m_pts = mapping_run
     m_ok = sum(s == 1 for s in mstates)
     mmetrics = msystem.metrics()
     phase("mapping", f"{m_ok}/{N_FRAMES} frames OK, ATE {m_ate:.6f} m (reference "
           f"{ATE_REF_MAPPING_M:.6f} m, limit {ATE_LIMIT_MAPPING_M:.6f} m), {kc} keyframes "
-          f"created, {mmetrics['n_keyframes']} valid, {mmetrics['n_points']} points, "
-          f"launches {launches}")
+          f"created, {m_kf} valid, {m_pts} points, launches {launches}")
     if m_ok != N_FRAMES:
         raise AssertionError(f"frames not OK with mapping: {mstates}")
     if not m_ate <= ATE_LIMIT_MAPPING_M:
         raise AssertionError(f"ATE with mapping {m_ate} m > {ATE_LIMIT_MAPPING_M} m")
     if kc < 1:
         raise AssertionError("the mapping slice created no keyframe")
-    if launches["fast_score_nms"] != settings.orb.n_levels * N_FRAMES:
-        raise AssertionError(f"K1 launched {launches['fast_score_nms']} times with mapping")
+    if launches["fast_score_nms"] != N_FRAMES:
+        raise AssertionError(f"K1 launched {launches['fast_score_nms']} times with mapping, "
+                             f"not once per frame ({N_FRAMES})")
     if launches["hamming_matrix"] <= launches_off["hamming_matrix"]:
         raise AssertionError(f"K2 launched {launches['hamming_matrix']} times with mapping, "
                              f"{launches_off['hamming_matrix']} without")
@@ -1141,6 +1350,7 @@ def main() -> int:
 
     mapper.process_keyframe = timed_process
     m_secs = drive(tsys, seq, "cuda", range(N_FRAMES))[1]
+    check_repeat("RGB-D with mapping", mapping_run, run_summary(tsys, seq))
     kf_frames = [i for i in range(N_FRAMES) if kc_log[i] > (kc_log[i - 1] if i else 0)]
     kf_syncs = [syncs[i] for i in kf_frames]
     plain_syncs = [syncs[i] for i in range(N_FRAMES) if i not in kf_frames and i > 0]
@@ -1159,28 +1369,13 @@ def main() -> int:
     start = min(max(k_last - 2, 1), N_FRAMES - 5)
     psys = make_system(settings, "cuda", mapping=True)
     drive(psys, seq, "cuda", range(start))
-    per_launch, window = profile_window(psys, seq, range(start, start + 5), card,
+    main_stats, window = profile_window(psys, seq, range(start, start + 5), card,
                                         f"mapping on, frames {start}-{start + 4}")
-    phase("profile", f"{card}: K3 "
-          f"{per_launch.get('projection_best2_kernel', float('nan')):.2f} us/launch, K4 "
-          f"{per_launch.get('ba_normal_equations_kernel', float('nan')):.2f} us/launch, K5 "
-          f"{per_launch.get('ba_chi2_kernel', float('nan')):.2f} us/launch (device)")
     mapping_stage_lines(window, card)
 
-    # 10. stereo at the KITTI operating point ----------------------------------
-    # The checked pass runs under deterministic algorithms: the float
-    # scatter-adds of local BA and of the point statistics sum in a
-    # run-dependent order on the card, and over this sequence's 9 keyframes
-    # that once moved the ATE by 4.3 mm (0.035022 m against 0.0393 m in
-    # four other runs on an H100); deterministic, the ATE check reads one
-    # result on every run.  The timing runs with the default algorithms.
-    stereo_settings, stereo_seq = stereo_sequence()
-    torch.use_deterministic_algorithms(True)
-    try:
-        stereo_launches, stereo_kf_frames = stereo_check(stereo_settings, stereo_seq)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    stereo_timing(stereo_settings, stereo_seq, stereo_kf_frames, card)
+    # 10. stereo at the KITTI operating point, default algorithms --------------
+    stereo_launches, stereo_kf_frames, stereo_run = stereo_check(stereo_settings, stereo_seq)
+    stereo_stats = stereo_timing(stereo_settings, stereo_seq, stereo_kf_frames, stereo_run, card)
 
     # The camera count of the main path's local-BA window (its last keyframe).
     from orbslam2_tpu_torch.models.local_mapping import _bucket
@@ -1189,34 +1384,60 @@ def main() -> int:
     c_main = n_local + min(mapper.ba_n_fixed, n_local)
     k4_bound, k5_bound = ba_bounds(c_main, 1024)
     phase("K4/K5", f"the main path's window: C={c_main} N=1024 (the kernel table's shape)")
-    # The rows hold the main path's (RGB-D with mapping) launches, K3 timed
-    # at its local-map search (4096 x 1024); "stereo_launches" are the
-    # stereo run's.
-    k3_ms, k3_plain_ms, k3_bound = k3_times[(4096, 1024)]
+    # The rows hold the main path's (RGB-D with mapping) launches, K1 timed
+    # on the 8 levels of a 640x480 frame (one launch), K3 at its local-map
+    # search (4096 x 1024); "stereo_launches" are the stereo run's;
+    # "device_us" is the device time per launch at the row's shape (the
+    # profiler) and "bound_share" the bound over it.
+    k1_ms, k1_plain_ms, k1_bnd, k1_us = k1["640x480"]
+    k3_ms, k3_plain_ms, k3_bound, k3_us = k3_times[(4096, 1024)]
     rows = [
         {"name": "fast_score_nms", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["fast_score_nms"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+         "bound_ms": k1_bnd[0], "bound_by": k1_bnd[1], "library_ms": None,
+         "device_us": k1_us},
         {"name": "hamming_matrix", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["hamming_matrix"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": k2_bnd[0], "bound_by": k2_bnd[1], "library_ms": None,
+         "device_us": k2_us},
         {"name": "projection_best2", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": launches["projection_best2"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+         "device_us": k3_us},
         {"name": "ba_normal_equations", "route": "cuda", "source": BA_SOURCE,
          "replaces": K4_REPLACES, "launches": launches["ba_normal_equations"],
          "max_abs_err": k4_err, "ms": ba_times[c_main][0], "plain_ms": ba_times[c_main][1],
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+         "device_us": ba_times[c_main][4]},
         {"name": "ba_chi2", "route": "cuda", "source": BA_SOURCE,
          "replaces": K5_REPLACES, "launches": launches["ba_chi2"],
          "max_abs_err": k5_err, "ms": ba_times[c_main][2], "plain_ms": ba_times[c_main][3],
-         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
+         "device_us": ba_times[c_main][5]},
     ]
-    for row in rows:
+    def lost_ms(stats, tag, launches):
+        """launches x (device - bound) per launch, from a profile window's
+        launches of the kernel, in ms."""
+        n, dev_us, bound_us = stats.get(tag, (0, 0.0, 0.0))
+        return launches * (dev_us - bound_us) / 1e3 if n else 0.0
+
+    for row, tag in zip(rows, KERNEL_TAGS):
         row["stereo_launches"] = stereo_launches[row["name"]]
+        row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
+        row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
+        row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])
+        phase("bounds", f"{card}: {row['name']}: device {row['device_us']:.2f} us/launch, bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), share "
+              f"{row['bound_share']:.3f} at the table's shape; {row['launches']} launches on the "
+              f"main path, {row['stereo_launches']} in the stereo run; lost per run (launches x "
+              f"(device - bound), the profile windows' launches) {row['lost_ms']:.3f} ms RGB-D "
+              f"with mapping, {row['stereo_lost_ms']:.3f} ms stereo")
+    order = sorted(rows, key=lambda r: -(r["lost_ms"] + r["stereo_lost_ms"]))
+    phase("bounds", "rule 2, by time lost per RGB-D + stereo run: " + ", ".join(
+        f"{r['name']} {r['lost_ms'] + r['stereo_lost_ms']:.3f} ms" for r in order))
     print(json.dumps({"kernels": rows}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card)

@@ -18,9 +18,10 @@
 //
 // What bounds them on an H100: memory.  Per observation K4 reads 29 bytes
 // (7 float32 + a bool) and writes 128; at C = 48, N = 1024 that is 7.7 MB,
-// about 2.3 us at 3.35 TB/s, against some 450 float32 operations per
-// observation (22 M, a third of a microsecond at 67 TFLOP/s).  K5 writes 4
-// bytes per observation.
+// about 2.3 us at 3.35 TB/s, against some 450 float32 adds and multiplies
+// per observation (22 M, 0.7 us at 128 per SM and clock, CUDA C++
+// Programming Guide, compute capability 9.0).  K5 writes 4 bytes per
+// observation.
 //
 // Design: one block per camera (the TPU kernel's grid step), 256 threads
 // striding over N, so neighbouring threads read and write neighbouring

@@ -33,6 +33,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
+# The most pyramid levels one K1 launch takes (MAX_LEVELS in csrc/fast_nms.cu).
+FAST_MAX_LEVELS = 16
+
 LAUNCHES = {"fast_score_nms": 0, "hamming_matrix": 0, "projection_best2": 0,
             "ba_normal_equations": 0, "ba_chi2": 0}
 
@@ -91,13 +94,14 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fast_score_nms_launch.argtypes = [vp, vp, ci, ci, vp]
-        lib.fast_score_nms_launch.restype = ci
+        cf = ctypes.c_float
+        vpp, cip = ctypes.POINTER(vp), ctypes.POINTER(ci)
+        lib.fast_score_nms_levels_launch.argtypes = [vpp, vpp, cip, cip, ci, cf, vp]
+        lib.fast_score_nms_levels_launch.restype = ci
         lib.hamming_matrix_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.hamming_matrix_launch.restype = ci
         lib.projection_best2_launch.argtypes = [vp] * 10 + [ci, ci, ci] + [vp] * 4
         lib.projection_best2_launch.restype = ci
-        cf = ctypes.c_float
         lib.ba_normal_equations_launch.argtypes = (
             [vp] * 10 + [ci, ci] + [cf] * 5 + [ci, vp])
         lib.ba_normal_equations_launch.restype = ci
@@ -127,18 +131,37 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def fast_score_nms_cuda(image: torch.Tensor) -> torch.Tensor:
-    """K1: (H, W) float32 CUDA image -> (H, W) float32 FAST-9 score after
-    3x3 NMS, equal to ``ops.fast.nms3x3(ops.fast.fast_score(image))``."""
-    _check("fast_score_nms", image, torch.float32, 2)
-    h, w = image.shape
-    out = torch.empty_like(image)
+def fast_score_nms_levels_cuda(levels, min_th: float = 0.0) -> list:
+    """K1: 1 to FAST_MAX_LEVELS (H, W) float32 CUDA images (the levels of a
+    pyramid), one launch -> for each, its FAST-9 score after 3x3 NMS,
+    thresholded: ``where(s >= min_th, s, 0)`` for
+    ``s = ops.fast.nms3x3(ops.fast.fast_score(level))``.  The outputs are
+    views of one buffer."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
+        raise ValueError(f"fast_score_nms: {len(levels)} levels, one launch takes 1 to "
+                         f"{FAST_MAX_LEVELS}")
+    for i, x in enumerate(levels):
+        _check(f"fast_score_nms level {i}", x, torch.float32, 2)
+        if x.numel() == 0:
+            raise ValueError(f"fast_score_nms: level {i} is empty, shape {tuple(x.shape)}")
+    dev = levels[0].device
+    if any(x.device != dev for x in levels):
+        raise ValueError("fast_score_nms: levels on different devices")
+    sizes = [x.numel() for x in levels]
+    outs = [o.view(x.shape) for o, x in zip(
+        torch.empty(sum(sizes), dtype=torch.float32, device=dev).split(sizes), levels)]
+    n = len(levels)
+    ptrs, ints = ctypes.c_void_p * n, ctypes.c_int * n
     lib = load()
-    with torch.cuda.device(image.device):
-        err = lib.fast_score_nms_launch(image.data_ptr(), out.data_ptr(), h, w, _stream(image))
+    with torch.cuda.device(dev):
+        err = lib.fast_score_nms_levels_launch(
+            ptrs(*(x.data_ptr() for x in levels)), ptrs(*(o.data_ptr() for o in outs)),
+            ints(*(x.shape[0] for x in levels)), ints(*(x.shape[1] for x in levels)), n,
+            float(min_th), _stream(levels[0]))
     _raise_on(err, "fast_score_nms")
     LAUNCHES["fast_score_nms"] += 1
-    return out
+    return outs
 
 
 def hamming_matrix_cuda(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:

@@ -150,9 +150,8 @@ def update_point_stats(m: MapState, scale_factors: torch.Tensor) -> MapState:
     kf_ids = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
     vec = m.pt_pos[flat_pts] - cam_centers[kf_ids]
     vec = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-9)
-    normal_sum = torch.zeros((P, 3), dtype=torch.float32, device=dev).index_add(
-        0, flat_pts, vec * okf[:, None]
-    )
+    normal_sum = segment_sum(P, torch.where(okf, flat_pts, P), vec)
+    # Whole numbers in float32: exact in any order.
     n_obs = torch.zeros((P,), dtype=torch.float32, device=dev).index_add(
         0, flat_pts, okf.to(torch.float32)
     )
@@ -212,6 +211,29 @@ def scatter_add(size: int, index: torch.Tensor, src) -> torch.Tensor:
     src = src.reshape(flat.shape + src.shape[index.dim():])
     out = torch.zeros((size + 1,) + src.shape[1:], dtype=src.dtype, device=src.device)
     return out.index_add(0, flat, src)[:size]
+
+
+def segment_sum(size: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``zeros(size).at[index].add(src, mode="drop")`` along dim 0 for a
+    float ``src`` (one row per entry of the 1-d ``index``), summed in a
+    fixed order with no atomics: a float ``index_add`` runs through atomics
+    on the card and its sums change from run to run.  A stable sort of the
+    targets keeps the entries of each target in their order; each entry is
+    written to its own slot of a zero (size + 1, width, ...) buffer (unique
+    targets, so any write order gives the same buffer), which is summed
+    over its slots.  Sizing the buffer by the largest segment costs one
+    host read per call: the callers run at keyframe rate."""
+    flat = index.long()
+    flat = torch.where((flat >= 0) & (flat < size), flat, size)
+    seg, order = torch.sort(flat, stable=True)
+    first = torch.searchsorted(seg, torch.arange(size + 1, device=seg.device))
+    pos = torch.arange(seg.shape[0], device=seg.device) - first[seg]
+    pos = torch.where(seg < size, pos, 0)  # dropped entries share one slot of the sentinel row
+    width = int(pos.max()) + 1
+    buf = torch.zeros((size + 1, width) + src.shape[1:], dtype=src.dtype, device=src.device)
+    buf[seg, pos] = torch.where((seg < size).view((-1,) + (1,) * (src.dim() - 1)),
+                                src[order], 0)
+    return buf[:size].sum(1)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 Port of ``orbslam2_tpu/ops/extractor.py`` (``ORBextractor::operator()``,
 src/ORBextractor.cc:≈1000): all levels with static shapes, producing a
 fixed-capacity, masked feature set.  The detector runs through
-``fast.fast_score_nms``, which launches the CUDA kernel when the image lies
-on a CUDA device.
+``fast.fast_score_nms_levels``, once per image for all its levels, which
+launches the CUDA kernel once when the image lies on a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,11 +55,10 @@ def _extract(
     levels = pyr_ops.build_pyramid(image.to(torch.float32), n_levels, scale_factor)
     scales = [float(s) for s in pyr_ops.scale_factors(n_levels, scale_factor)]
 
+    scores = fast_ops.fast_score_nms_levels(levels, min_th)
     xs, lvls, resps, valids, patches = [], [], [], [], []
     for li, img in enumerate(levels):
-        score = fast_ops.fast_score_nms(img)
-        score = torch.where(score >= min_th, score, torch.zeros_like(score))
-        xy, resp, valid = select_ops.select_keypoints(score, per_level[li], cell=cell)
+        xy, resp, valid = select_ops.select_keypoints(scores[li], per_level[li], cell=cell)
         # One 31x31 patch per keypoint from the blurred level feeds both
         # the orientation and the descriptor.
         patches.append(orb_ops.extract_patches(pyr_ops.gaussian_blur(img), xy))

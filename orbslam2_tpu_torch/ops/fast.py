@@ -3,9 +3,11 @@
 Port of ``orbslam2_tpu/ops/fast.py`` (the detector half of
 ``ORBextractor::ComputeKeyPointsOctTree``, src/ORBextractor.cc:≈790).
 ``fast_score`` and ``nms3x3`` are the plain PyTorch versions;
-``fast_score_nms`` is the entry point the extractor calls: it launches the
-CUDA kernel (``csrc/fast_nms.cu``) for a CUDA tensor and composes the plain
-versions for a CPU tensor.
+``fast_score_nms_levels`` is the entry point the extractor calls, once per
+image for all its pyramid levels: it launches the CUDA kernel
+(``csrc/fast_nms.cu``) once for CUDA tensors and composes the plain
+versions level by level for CPU tensors.  ``fast_score_nms`` is its
+one-level case.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..kernels import FAST_MAX_LEVELS
 
 # Bresenham circle of radius 3: 16 (dy, dx) offsets clockwise from 12
 # o'clock.  Arc contiguity is evaluated circularly over this order.
@@ -67,11 +71,32 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(is_max & (first == idx), score, torch.zeros_like(score))
 
 
-def fast_score_nms(image: torch.Tensor) -> torch.Tensor:
-    """``nms3x3(fast_score(image))`` for an (H, W) float32 image: the CUDA
-    kernel for a CUDA tensor, the plain versions for a CPU tensor."""
-    if image.device.type == "cpu":
-        return nms3x3(fast_score(image))
-    from ..kernels import fast_score_nms_cuda
+def fast_score_nms_levels(levels, min_th: float = 0.0) -> list:
+    """For each (H, W) float32 image of ``levels`` (1 to FAST_MAX_LEVELS of
+    them), ``nms3x3(fast_score(x))`` with the scores below ``min_th`` set
+    to 0 (the extractor's threshold; 0 changes nothing): one launch of the
+    CUDA kernel for CUDA tensors, the plain versions level by level for CPU
+    tensors; anything else raises."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
+        raise ValueError(f"fast_score_nms_levels: {len(levels)} levels, 1 to "
+                         f"{FAST_MAX_LEVELS} are taken")
+    kinds = {x.device.type for x in levels}
+    if kinds == {"cpu"}:
+        out = []
+        for x in levels:
+            s = nms3x3(fast_score(x))
+            out.append(torch.where(s >= min_th, s, torch.zeros_like(s)))
+        return out
+    if kinds != {"cuda"}:
+        raise ValueError(f"fast_score_nms_levels: levels on {sorted(kinds)}, expected all on "
+                         "the CPU or all on CUDA")
+    from ..kernels import fast_score_nms_levels_cuda
 
-    return fast_score_nms_cuda(image.contiguous())
+    return fast_score_nms_levels_cuda([x.contiguous() for x in levels], min_th)
+
+
+def fast_score_nms(image: torch.Tensor) -> torch.Tensor:
+    """``nms3x3(fast_score(image))`` for an (H, W) float32 image: the one-
+    level case of ``fast_score_nms_levels``."""
+    return fast_score_nms_levels([image])[0]

@@ -8,8 +8,10 @@ LocalBundleAdjustment``, src/Optimizer.cc:≈460, and g2o's BlockSolver_6_3):
   * every LM step builds its blocks with K4 (``ba_kernels.
     ba_normal_equations``) and scores candidates with K5 (``ba_chi2``): the
     CUDA kernels on the card, their plain versions on the CPU, followed on
-    both by the same scatter tail (3x3 landmark blocks by scatter-add, the
-    6x3 cross blocks gathered through the inverse observation index);
+    both by the same gather tail (``_point_blocks``: the 3x3 landmark
+    blocks, their right-hand sides and the 6x3 cross blocks gathered through
+    the inverse observation index, the landmark sums taken over the camera
+    axis in a fixed order, with no atomics);
   * landmark blocks are inverted in closed form, the reduced camera system
     S = H_cc - H_cp H_pp^-1 H_pc is dense (6C, 6C) and solved by Cholesky;
   * the reference's 5 robust + 10 plain iterations with chi2 outlier
@@ -90,6 +92,48 @@ def _residuals(poses, pts, uv, ur, pid, cam: CameraModel):
     return r, J_cam, J_pt, z <= 1e-6
 
 
+def _inverse_slots(pid: torch.Tensor, obs_ok: torch.Tensor, P: int):
+    """Inverse observation index: inv_slot[c, p] = the first keypoint slot
+    of point p in camera c (N where unobserved).  Returns (inv_slot (C, P),
+    obs_ok without the observations that are not that first slot), so that
+    every (camera, point) pair has one observation."""
+    C, N = pid.shape
+    dev = pid.device
+    cam_iota = torch.arange(C, device=dev)[:, None].expand(C, N)
+    obs_iota = torch.arange(N, device=dev)[None, :].expand(C, N)
+    flat = cam_iota * (P + 1) + torch.where(obs_ok, pid, P)
+    inv_slot = ms.scatter_min(
+        C * (P + 1), flat, torch.where(obs_ok, obs_iota, N), fill=N
+    ).view(C, P + 1)[:, :P]
+    return inv_slot, obs_ok & (inv_slot.gather(1, pid) == obs_iota)
+
+
+def _point_blocks(pack: torch.Tensor, inv_slot: torch.Tensor, free_f: torch.Tensor):
+    """The landmark side of K4's pack (C, 32, N), P-minor through the
+    inverse index: returns (H_pp (P, 3, 3), b_p (P, 3), Gp (C, 6, 3, P)).
+
+    H_pp and b_p sum each point's rows 0-8 over the cameras with ``sum``, a
+    reduction in a fixed order for a given shape (a float scatter-add runs
+    through atomics on the card, in an order that changes from run to run).
+    The gather reads one slot per (camera, point) pair, the first one, and
+    skips the others: the later duplicates and the slots outside obs_ok.
+    Those are outside the solve's obs_mask, so K4 gives them weight w = 0,
+    and their rows, each w times a finite Jacobian product (z is clamped at
+    1e-6 before 1/z), are zero: what a scatter-add over every slot would
+    have added for them.  Cross blocks of fixed cameras (``free_f`` 0) are
+    zero."""
+    C = pack.shape[0]
+    P = inv_slot.shape[1]
+    rows = pack[:, :27, :]
+    rows = torch.cat([rows, torch.zeros_like(rows[:, :, :1])], dim=2)  # slot N: unobserved
+    per_cam = rows.gather(2, inv_slot[:, None, :].expand(C, 27, P))    # (C, 27, P)
+    sums = per_cam[:, :9].sum(0)                                         # (9, P)
+    H_pp = torch.stack([sums[i] for i in _HPP_FULL], dim=1).view(P, 3, 3)
+    b_p = sums[6:9].T
+    Gp = (per_cam[:, 9:27] * free_f[:, None, None]).view(C, 6, 3, P)
+    return H_pp, b_p, Gp
+
+
 def _blockdiag(blocks: torch.Tensor) -> torch.Tensor:
     """(C, 6, 6) -> (6C, 6C) block diagonal."""
     C = blocks.shape[0]
@@ -146,18 +190,9 @@ def schur_ba_core(
         # The masked total, 1e9 sentinels included.
         return ba_chi2(poses, X_of(pts), uvT, ur, inv_s2, mask, cam)[1].sum()
 
-    # Inverse observation index: inv_slot[c, p] = the first keypoint slot of
-    # point p in camera c (N where unobserved).  Observations that are not
-    # that first slot are dropped, so the scattered blocks and the gathered
-    # cross blocks see one observation per (camera, point) pair, and the
-    # dropped duplicates leave the returned inlier mask.
-    cam_iota = torch.arange(C, device=dev)[:, None].expand(C, N)
-    obs_iota = torch.arange(N, device=dev)[None, :].expand(C, N)
-    flat = cam_iota * (P + 1) + torch.where(obs_ok, pid, P)
-    inv_slot = ms.scatter_min(
-        C * (P + 1), flat, torch.where(obs_ok, obs_iota, N), fill=N
-    ).view(C, P + 1)[:, :P]
-    obs_ok = obs_ok & (inv_slot.gather(1, pid) == obs_iota)
+    # One observation per (camera, point) pair: the dropped duplicates
+    # leave the returned inlier mask.
+    inv_slot, obs_ok = _inverse_slots(pid, obs_ok, P)
 
     free_f = (~is_fixed).to(torch.float32)
     free6 = torch.repeat_interleave((~is_fixed) & used, 6)
@@ -170,14 +205,7 @@ def schur_ba_core(
         # keep their point-side contributions.
         H_cc = H_cc * free_f[:, None, None]
         b_c = b_c * free_f[:, None]
-        H6 = ms.scatter_add(P, pid, pack[:, 0:6, :].transpose(1, 2))
-        H_pp = H6[:, _HPP_FULL].view(P, 3, 3)
-        b_p = ms.scatter_add(P, pid, pack[:, 6:9, :].transpose(1, 2))
-        G = pack[:, 9:27, :] * free_f[:, None, None]
-        # Cross blocks P-minor, (C, 6, 3, P), through the inverse index.
-        G_pad = torch.cat([G, torch.zeros_like(G[:, :, :1])], dim=2)
-        Gp = G_pad.gather(2, inv_slot[:, None, :].expand(C, 18, P)).view(C, 6, 3, P)
-        return H_cc, b_c, H_pp, b_p, Gp
+        return (H_cc, b_c, *_point_blocks(pack, inv_slot, free_f))
 
     def lm_step(poses, pts, obs_mask, lam, robust):
         H_cc, b_c, H_pp, b_p, Gp = blocks(poses, pts, obs_mask, robust)

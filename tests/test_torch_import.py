@@ -180,7 +180,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     # The wrappers never fall back: a tensor that is not on a CUDA device
     # is an error (checked before any build is attempted).
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.fast_score_nms_cuda(torch.zeros(8, 8))
+        kernels.fast_score_nms_levels_cuda([torch.zeros(8, 8)])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.hamming_matrix_cuda(torch.zeros(2, 8, dtype=torch.int32),
                                     torch.zeros(2, 8, dtype=torch.int32))
