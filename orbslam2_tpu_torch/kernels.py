@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  At first use one
-``nvcc`` call compiles them all for ``sm_90a`` into one shared library under
+``nvcc`` per source, all at once, compiles them for ``sm_90a``, and one
+link makes them a shared library under
 ``build/orbslam2_tpu_torch/<hash of the sources>/`` at the repository root
 (so an edit rebuilds), which is loaded with ``ctypes``; the kernels launch
 on PyTorch's current stream.  Each C entry returns ``cudaGetLastError()``
@@ -66,25 +67,31 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists: one
-    ``nvcc -shared`` over all the sources, into a temporary file that is
-    renamed into place, so a process never loads a half-written library."""
+    ``nvcc -c`` per source, all started together, then one link into a
+    temporary file that is renamed into place, so a process never loads a
+    half-written library."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so")
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *(str(_CSRC / n) for n in _SOURCES)],
-            capture_output=True, text=True,
-        )
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        objs = [Path(tmp_dir) / (Path(n).stem + ".o") for n in _SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / n)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for n, o in zip(_SOURCES, objs)]
+        for n, p in zip(_SOURCES, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise RuntimeError(f"nvcc failed on {n} ({p.returncode}):\n{err}")
+        tmp = Path(tmp_dir) / out.name
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return out
 
 
@@ -103,9 +110,9 @@ def load():
         lib.projection_best2_launch.argtypes = [vp] * 10 + [ci, ci, ci] + [vp] * 4
         lib.projection_best2_launch.restype = ci
         lib.ba_normal_equations_launch.argtypes = (
-            [vp] * 10 + [ci, ci] + [cf] * 5 + [ci, vp])
+            [vp] * 10 + [ci, ci, ci] + [cf] * 5 + [ci, vp])
         lib.ba_normal_equations_launch.restype = ci
-        lib.ba_chi2_launch.argtypes = [vp] * 8 + [ci, ci] + [cf] * 5 + [vp]
+        lib.ba_chi2_launch.argtypes = [vp] * 8 + [ci, ci, ci] + [cf] * 5 + [vp]
         lib.ba_chi2_launch.restype = ci
         _lib = lib
     return _lib
@@ -249,6 +256,29 @@ def projection_best2_cuda(proj_uv, rr2, proj_level, proj_desc, proj_valid,
     return idx, best, second
 
 
+# K4/K5's launch shape (THREADS, MAX_SPLIT in csrc/ba_kernels.cu): blocks of
+# BA_THREADS threads, each camera's observations split over a cluster of
+# ba_split(C, N) blocks, for at least BA_BLOCKS blocks in all where the
+# cluster limit allows.
+BA_THREADS = 128
+BA_MAX_SPLIT = 8
+BA_BLOCKS = 128
+
+
+def ba_split(C: int, N: int) -> int:
+    """The number of blocks S (1, 2, 4 or 8) over which K4 and K5 split
+    each camera's N observations: the smallest S with C * S >= BA_BLOCKS,
+    else BA_MAX_SPLIT, halved while S > N so that no block is empty.
+    Block r of S takes observations [r N // S, (r + 1) N // S).  A pure
+    function of the shape, so the order of the kernels' sums is too."""
+    S = 1
+    while S < BA_MAX_SPLIT and C * S < BA_BLOCKS:
+        S *= 2
+    while S > max(N, 1):
+        S //= 2
+    return S
+
+
 def _ba_inputs(poses, X, uv, ur, inv_s2, mask):
     """Checks of the K4/K5 inputs; returns (C, N)."""
     _check("ba poses", poses, torch.float32, 3)
@@ -258,8 +288,8 @@ def _ba_inputs(poses, X, uv, ur, inv_s2, mask):
     _check("ba inv_s2", inv_s2, torch.float32, 2)
     _check("ba mask", mask, torch.bool, 2)
     C, _, N = X.shape
-    if C < 1 or N < 1:
-        raise ValueError(f"ba kernels: empty problem C={C}, N={N}")
+    if C < 1 or N < 1 or C > 65535:
+        raise ValueError(f"ba kernels: unsupported sizes C={C}, N={N}")
     shapes = {"poses": (poses.shape, (C, 4, 4)), "X": (X.shape, (C, 3, N)),
               "uv": (uv.shape, (C, 2, N)), "ur": (ur.shape, (C, N)),
               "inv_s2": (inv_s2.shape, (C, N)), "mask": (mask.shape, (C, N))}
@@ -275,7 +305,8 @@ def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust:
     """K4: poses (C, 4, 4), X (C, 3, N), uv (C, 2, N), ur / inv_s2 (C, N)
     float32 and mask (C, N) bool, all CUDA; ``intrinsics`` the floats
     (fx, fy, cx, cy, bf).  Returns (H_cc (C, 6, 6), b_c (C, 6),
-    pack (C, 32, N), chi2_sum (C,)), as ``solvers.ba_kernels``."""
+    pack (C, 32, N), chi2_sum (C,)), as ``solvers.ba_kernels``; one launch
+    of (ba_split(C, N), C) blocks in clusters of ba_split(C, N)."""
     C, N = _ba_inputs(poses, X, uv, ur, inv_s2, mask)
     dev = X.device
     pack = torch.empty((C, 32, N), dtype=torch.float32, device=dev)
@@ -287,7 +318,8 @@ def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust:
         err = lib.ba_normal_equations_launch(
             poses.data_ptr(), X.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_s2.data_ptr(),
             mask.data_ptr(), pack.data_ptr(), H.data_ptr(), b.data_ptr(), chi2.data_ptr(),
-            C, N, *(float(v) for v in intrinsics), int(bool(robust)), _stream(X),
+            C, N, ba_split(C, N), *(float(v) for v in intrinsics), int(bool(robust)),
+            _stream(X),
         )
     _raise_on(err, "ba_normal_equations")
     LAUNCHES["ba_normal_equations"] += 1
@@ -304,7 +336,7 @@ def ba_chi2_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics):
     with torch.cuda.device(dev):
         err = lib.ba_chi2_launch(
             poses.data_ptr(), X.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_s2.data_ptr(),
-            mask.data_ptr(), chi2.data_ptr(), total.data_ptr(), C, N,
+            mask.data_ptr(), chi2.data_ptr(), total.data_ptr(), C, N, ba_split(C, N),
             *(float(v) for v in intrinsics), _stream(X),
         )
     _raise_on(err, "ba_chi2")
