@@ -8,8 +8,10 @@ sources under ``csrc/``, built and bound by ``kernels.py``; every wrapper
 launches its kernel for a CUDA tensor and takes its plain PyTorch version
 for a CPU tensor.
 
-Ported so far: RGB-D tracking with keyframe insertion (local mapping, loop
-closing and relocalization are not ported yet; see ROADMAP.md).
+Ported so far: RGB-D and stereo tracking with keyframe insertion,
+synchronous local mapping, place recognition with relocalization, and
+localization-only mode (loop closing, mono and the chunked, pipelined and
+async drivers are not ported yet; see ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,10 @@ import torch
 
 from . import config
 from .models.frame import Frame
+from .models.kf_database import KeyframeDatabase
 from .models.map_state import MapState
 from .models.track_fused import TrackCtx
+from .ops.bow import Vocabulary, vocabulary_from_arrays
 
 
 def settings_from_reference(settings) -> config.Settings:
@@ -66,15 +68,37 @@ def frame_from_numpy(d, device) -> Frame:
 
 def track_ctx_from_numpy(d, device) -> TrackCtx:
     """A reference ``TrackCtx`` (or a dict) -> ``TrackCtx``: arrays go to
-    ``device``; the host-decided scalars become Python values.  The
-    reference's localization-only inputs (``only_tracking`` and the last
-    frame's depth, descriptors and validity) have no counterpart yet: a
-    context in that mode is refused."""
+    ``device``; the host-decided scalars (``only_tracking`` among them)
+    become Python values."""
     d = _fields(d)
-    if bool(np.asarray(d["only_tracking"])):
-        raise NotImplementedError("localization-only tracking is not ported yet")
-    host = {"has_velocity": bool, "weak": bool, "ref_kf": int, "frames_since_kf": int}
+    host = {"has_velocity": bool, "weak": bool, "ref_kf": int, "frames_since_kf": int,
+            "only_tracking": bool}
     return TrackCtx(**{
         k: host[k](np.asarray(d[k])) if k in host else tensor_from_numpy(d[k], device)
         for k in TrackCtx._fields
     })
+
+
+def vocabulary_from_numpy(v) -> Vocabulary:
+    """A reference ``Vocabulary`` (or a dict of its arrays and ``levels``)
+    -> the port's, on the CPU (``Vocabulary.to`` moves it)."""
+    v = _fields(v)
+    return vocabulary_from_arrays(v["node_desc"], v["children"], v["word_id"], v["idf"],
+                                  int(v["levels"]))
+
+
+def database_from_numpy(db, device) -> KeyframeDatabase:
+    """A reference ``KeyframeDatabase`` -> the port's on ``device``, its
+    vocabulary and per-keyframe state (BoW rows or sparse word lists,
+    entries, feature node ids) carried across."""
+    K, cap = np.asarray(db.has_entry).shape[0], db._feat_capacity
+    out = KeyframeDatabase(vocabulary_from_numpy(db.vocab), K, feat_capacity=cap, device=device)
+    if out.sparse != db.sparse:
+        raise ValueError(f"the reference database is {'sparse' if db.sparse else 'dense'} for "
+                         f"{out.vocab.n_words} words, this package's would not be")
+    names = ("db_words", "db_weights") if db.sparse else ("bow",)
+    for name in names + ("has_entry",):
+        setattr(out, name, tensor_from_numpy(getattr(db, name), device))
+    if db.db_nodes is not None:
+        out.db_nodes = tensor_from_numpy(db.db_nodes, device)
+    return out

@@ -256,22 +256,28 @@ def points_seen_by(m: MapState, kf_mask: torch.Tensor) -> torch.Tensor:
     return scatter_max(m.pt_capacity, torch.where(ok, pts, m.pt_capacity), 1) > 0
 
 
-def covisible_row(m: MapState, kf_id) -> torch.Tensor:
-    """(K,) int32: shared-point counts of ``kf_id`` vs every keyframe — one
-    row of the covisibility matrix (KeyFrame::GetCovisiblesByWeight), its
-    own entry zeroed."""
+def covisible_rows(m: MapState, kf_ids: torch.Tensor) -> torch.Tensor:
+    """(S, K) int32: shared-point counts of each of ``kf_ids`` (S,) vs every
+    keyframe — rows of the covisibility matrix (KeyFrame::
+    GetCovisiblesByWeight), each keyframe's own entry zeroed."""
     P = m.pt_capacity
-    kf = torch.as_tensor(kf_id, device=m.kf_point.device).long()
-    row_pts = m.kf_point[kf]
-    ok_row = (
-        (row_pts >= 0) & m.kf_kp_valid[kf] & m.kf_valid[kf]
-        & m.pt_valid[torch.clamp(row_pts, min=0).long()]
-    )
-    member = scatter_max(P, torch.where(ok_row, row_pts, P), 1) > 0
+    kf = kf_ids.long()
+    S = kf.shape[0]
+    row_pts = m.kf_point[kf].long()
+    ok_row = ((row_pts >= 0) & m.kf_kp_valid[kf] & m.kf_valid[kf][:, None]
+              & m.pt_valid[row_pts.clamp(min=0)])
+    # One membership row per keyframe, flattened: row s at s * P.
+    base = (torch.arange(S, device=kf.device) * P)[:, None]
+    member = scatter_max(S * P, torch.where(ok_row, row_pts + base, S * P), 1) > 0
     ok, pts = _valid_obs(m)
-    hit = member[torch.where(ok, pts, 0).long()] & ok
-    w = hit.sum(1).to(torch.int32)
-    return w.index_fill(0, kf.view(1), 0)
+    hit = member.view(S, P)[:, torch.where(ok, pts, 0).long()] & ok
+    return hit.sum(-1).to(torch.int32).scatter(1, kf[:, None], 0)
+
+
+def covisible_row(m: MapState, kf_id) -> torch.Tensor:
+    """(K,) int32: ``covisible_rows`` of the one keyframe ``kf_id``."""
+    kf = torch.as_tensor(kf_id, device=m.kf_point.device).long().view(1)
+    return covisible_rows(m, kf)[0]
 
 
 def point_observation_counts(m: MapState) -> torch.Tensor:

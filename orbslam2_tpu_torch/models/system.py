@@ -1,19 +1,24 @@
 """System facade — the public API.
 
 Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
-stereo and RGB-D tracking with synchronous local mapping: ``track_stereo``,
-``track_rgbd``, the metrics snapshot and the three
-trajectory savers (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
+stereo and RGB-D tracking with synchronous local mapping and
+relocalization: ``track_stereo``, ``track_rgbd``, the localization-only
+mode switches, the metrics snapshot and the three trajectory savers
+(SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
 SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, rather than being ignored.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..config import Settings
+from ..ops.bow import Vocabulary, train_vocabulary_arrays, vocabulary_from_arrays
+from .kf_database import KeyframeDatabase
 from .local_mapping import LocalMapper
 from .tracking import Tracker
 
@@ -24,6 +29,21 @@ class Sensor:
     RGBD = "rgbd"
 
 
+@functools.lru_cache(maxsize=4)
+def _default_vocabulary_arrays(seed: int):
+    rng = np.random.default_rng(seed)
+    train = rng.integers(0, 2**32, (6000, 8), dtype=np.uint32)
+    return train_vocabulary_arrays(train, k=10, levels=3, seed=seed)
+
+
+def _default_vocabulary(seed: int = 0) -> Vocabulary:
+    """The reference's small built-in vocabulary (k=10, L=3: 1000 words)
+    trained on seeded random descriptors, as CPU tensors (trained once per
+    process).  Real datasets want a vocabulary built from representative
+    data or converted from ORBvoc.txt (``utils/vocab.py``)."""
+    return vocabulary_from_arrays(*_default_vocabulary_arrays(seed), levels=3)
+
+
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
@@ -32,7 +52,10 @@ class SlamSystem:
     """``SlamSystem(settings, "rgbd", enable_loop_closing=False)`` then
     ``track_rgbd`` per frame, or ``SlamSystem(settings, "stereo",
     enable_loop_closing=False)`` then ``track_stereo``; ``enable_mapping``
-    (default True) runs local mapping after each keyframe.
+    (default True) runs local mapping after each keyframe.  Every system
+    builds a keyframe database on ``vocabulary`` (by default the built-in
+    1000-word one, ``_default_vocabulary``), which relocalizes LOST
+    frames, as the reference does.
 
     The signature and defaults are the reference's; every option this port
     lacks raises.  ``device`` is where tracking and mapping run: the card
@@ -59,8 +82,9 @@ class SlamSystem:
             raise ValueError(f"unknown sensor {sensor!r}")
         if enable_loop_closing:
             raise _not_ported("loop closing (enable_loop_closing=True)", 15)
-        if vocabulary is not None:
-            raise _not_ported("the BoW vocabulary and relocalization", 14)
+        if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
+            raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
+                            f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
         if chunk or pipeline:
             raise _not_ported("the chunked and pipelined trackers (chunk, pipeline)", 11)
         if async_mapping or mapping_device is not None:
@@ -73,7 +97,12 @@ class SlamSystem:
         # Synchronous local mapping after each keyframe (the reference's
         # LocalMapping thread; async mapping is item 10).
         self.local_mapper = LocalMapper(settings, sensor=sensor) if enable_mapping else None
-        self.tracker = Tracker(settings, local_mapper=self.local_mapper, device=self.device)
+        self.vocabulary = vocabulary if vocabulary is not None else _default_vocabulary()
+        self.database = KeyframeDatabase(self.vocabulary, settings.tpu.max_keyframes,
+                                         device=self.device)
+        self.tracker = Tracker(settings, local_mapper=self.local_mapper,
+                               database=self.database, device=self.device)
+        self.localization_only = False
         self.timestamps = []
 
     # -- per-frame API (System::TrackStereo / TrackRGBD) -----------------
@@ -85,6 +114,21 @@ class SlamSystem:
     def track_rgbd(self, image, depth, timestamp: float):
         self.timestamps.append(timestamp)
         return self.tracker.track_rgbd(image, depth, timestamp)
+
+    # -- modes (System::ActivateLocalizationMode) -------------------------
+
+    def activate_localization_mode(self):
+        """Tracking only: local mapping and keyframe insertion pause (the
+        reference stops LocalMapping and sets mbOnlyTracking); motion-model
+        tracking leans on temporary VO points through unmapped regions."""
+        self.localization_only = True
+        self.tracker.local_mapper = None
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.local_mapper = self.local_mapper
+        self.tracker.localization_only = False
 
     # -- state inspection --------------------------------------------------
 

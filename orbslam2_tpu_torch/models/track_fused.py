@@ -7,6 +7,7 @@ Port of ``orbslam2_tpu/models/track_fused.py::_fused_track``
     -> TrackReferenceKeyFrame fallback (≈770)
     -> TrackLocalMap (≈930)
     -> ref-KF rescue if the motion path collapsed
+    -> visual odometry in localization-only mode (mbVO, ≈900)
     -> NeedNewKeyFrame decision (≈980)
     -> velocity + relative-pose bookkeeping
 
@@ -38,7 +39,7 @@ from .tracking import (
 FLAG_OK = 0
 FLAG_N_INLIERS = 1
 FLAG_NEED_KF = 2
-FLAG_PATH = 3  # 0 = lost, 1 = motion model, 2 = reference keyframe
+FLAG_PATH = 3  # 0 = lost, 1 = motion model, 2 = reference keyframe, 3 = VO
 N_FLAGS = 4
 
 
@@ -56,6 +57,12 @@ class TrackCtx(NamedTuple):
     ref_kf: int                   # reference keyframe id
     weak: bool                    # last frame tracked < 50 points
     frames_since_kf: int
+    # Temporary VO sources (Tracking::UpdateLastFrame, Tracking.cc:≈810):
+    # the last frame's depth, descriptors and validity.
+    last_depth: torch.Tensor      # (N,) last frame depth (<0 = none)
+    last_desc: torch.Tensor       # (N, 8) int32
+    last_valid: torch.Tensor      # (N,) bool
+    only_tracking: bool           # localization-only mode (mbOnlyTracking)
     last_angle: torch.Tensor      # (N,) last frame keypoint angles
 
 
@@ -98,19 +105,25 @@ def _fused_track(
 
     # --- 1. motion-model tracking with doubled-window retry ---------------
     def run_motion(radius):
-        T, b, n_map, n_match, _ = track_motion_model(
+        T, b, n_map, n_match, n_tot = track_motion_model(
             m, frame, ctx.velocity @ ctx.T_last, ctx.last_xy, ctx.last_bindings,
             ctx.last_level, cam, scale_factors, inv_sigma2, radius,
             T_last=ctx.T_last, last_angle=ctx.last_angle, baseline=cam.baseline,
+            last_depth=ctx.last_depth, last_desc=ctx.last_desc, last_valid=ctx.last_valid,
+            temp_depth_cap=th_depth, use_temp=ctx.only_tracking,
         )
-        return T, b, *host(torch.stack([n_map, n_match]))
+        return T, b, *host(torch.stack([n_map, n_match, n_tot.to(n_map.dtype)]))
 
     ok_motion = False
+    n_tot_h = 0
     if ctx.has_velocity:
-        T_m, b_m, n_m_h, n_match_h = run_motion(th)
+        T_m, b_m, n_m_h, n_match_h, n_tot_h = run_motion(th)
         if n_match_h < 20:
-            T_m, b_m, n_m_h, n_match_h = run_motion(2.0 * th)
+            T_m, b_m, n_m_h, n_match_h, n_tot_h = run_motion(2.0 * th)
         ok_motion = n_m_h >= 10
+    # Localization-only VO eligibility (mbVO, Tracking.cc:≈900): enough
+    # motion-model inliers, map and temporary together, to dead-reckon.
+    vo_eligible = ctx.only_tracking and ctx.has_velocity and n_tot_h >= 20
 
     # --- 2. reference-keyframe fallback ------------------------------------
     def refkf_path():
@@ -151,6 +164,11 @@ def _fused_track(
     else:
         Tf, bf, nf, ptv, ptf = T1, b1, n1, ptv1, ptf1
     ok = nf >= 30
+    # VO mode: the map-anchored chain failed, but the motion model had
+    # enough (map + temporary) inliers; its dead-reckoned pose is taken.
+    vo_mode = vo_eligible and not ok
+    if vo_mode:
+        Tf, bf, nf, ok = T_m, b_m, n_tot_h, True
     m = m._replace(pt_visible=ptv, pt_found=ptf)
 
     # --- 5. bookkeeping: velocity, trajectory log, keyframe policy ---------
@@ -191,7 +209,9 @@ def _fused_track(
     need = (c1c | c1ab) & c2
     need = need & (ctx.frames_since_kf >= 1 and ok) & (m.n_kf < m.kf_capacity - 1)
 
-    if ok and ok_motion and not use_rescue:
+    if vo_mode:
+        path = 3
+    elif ok and ok_motion and not use_rescue:
         path = 1
     else:
         path = 2 if ok else 0

@@ -13,12 +13,17 @@ names and fixed shapes:
                         SearchLocalPoints (≈930-1300)
   insert_keyframe / add_points / unproject_frame_depth
                         keyframe insertion and depth-spawned points
+  relocalize_candidate  BoW candidate -> node-gated matching -> P3P RANSAC
+                        -> pose polish (Tracking::Relocalization, ≈1310)
 
 The host ``Tracker`` runs the state machine.  Initialization builds the
 first keyframe from stereo or sensor depth (StereoInitialization, ≈500);
 every later frame goes through ``track_fused._fused_track``; a
-``LocalMapper`` given to the tracker maps each new keyframe synchronously.  Loop closing,
-relocalization and the chunked/pipelined trackers are not ported yet.
+``LocalMapper`` given to the tracker maps each new keyframe synchronously,
+and a ``KeyframeDatabase`` takes every keyframe and serves the
+relocalization of LOST frames (and of visual-odometry frames in
+localization-only mode).  Loop closing and the chunked/pipelined trackers
+are not ported yet.
 
 Repeated scatter targets are resolved as the reference's CPU run resolves
 them (the highest source row wins), through ``map_state.scatter_last``.
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from ..config import Settings
-from ..ops import matcher
+from ..ops import matcher, pnp
 from ..ops import pyramid as pyr_ops
 from ..ops.extractor import OrbExtractor
 from ..ops.hamming import TH_HIGH, TH_LOW, match_descriptors, rotation_consistency
@@ -99,24 +104,43 @@ def track_motion_model(
     T_last: torch.Tensor,
     last_angle: torch.Tensor,
     baseline: float,
+    last_depth: Optional[torch.Tensor] = None,
+    last_desc: Optional[torch.Tensor] = None,
+    last_valid: Optional[torch.Tensor] = None,
+    temp_depth_cap: float = 1e9,
+    use_temp: bool = False,
 ):
     """Project the last frame's map points with the predicted pose, match
     in a window, optimize the pose.
 
-    The reference also matches temporary visual-odometry sources here
-    (Tracking::UpdateLastFrame, src/Tracking.cc:≈810) behind a
-    localization-only flag; that mode is not ported yet, and with the flag
-    off the reference computes exactly this.
+    Temporary visual-odometry points (Tracking::UpdateLastFrame,
+    src/Tracking.cc:≈810), with ``use_temp`` (localization-only mode): the
+    last frame's unbound keypoints with close depth are unprojected at the
+    last pose and matched as extra sources; they never enter the map or the
+    bindings.  The pose is optimized on the map matches first and, when
+    that leaves fewer than 20 inliers, again with the temporary ones.
+    Without ``use_temp`` the reference's gated sources are all off and it
+    computes exactly the map-only search.
 
     Returns (T, bindings, n_inliers_map, n_matches, n_inliers_total).
     """
     bound = last_bindings >= 0
     pid = torch.where(bound, last_bindings, 0).long()
     is_map = bound & m.pt_valid[pid]
+    use_temp = use_temp and last_depth is not None
 
-    p_c = se3_apply(T_pred, m.pt_pos[pid])
+    p_w, desc_src, valid_src = m.pt_pos[pid], m.pt_desc[pid], is_map
+    if use_temp:
+        has_temp = ~is_map & last_valid & (last_depth > 0) & (last_depth < temp_depth_cap)
+        x = (last_xy[:, 0] - cam.cx) / cam.fx * last_depth
+        y = (last_xy[:, 1] - cam.cy) / cam.fy * last_depth
+        p_w_temp = se3_apply(se3_inverse(T_last), torch.stack([x, y, last_depth], -1))
+        p_w = torch.where(is_map[:, None], p_w, p_w_temp)
+        desc_src = torch.where(is_map[:, None], desc_src, last_desc)
+        valid_src = is_map | has_temp
+    p_c = se3_apply(T_pred, p_w)
     uv = _project(cam, p_c)
-    valid_src = is_map & (p_c[:, 2] > 0.1) & in_image(cam, uv)
+    valid_src = valid_src & (p_c[:, 2] > 0.1) & in_image(cam, uv)
 
     # Depth-direction octave gate (ORBmatcher.cc:≈1180), stereo/RGB-D only:
     # forward motion searches higher octaves, backward motion lower ones.
@@ -124,17 +148,35 @@ def track_motion_model(
     one = torch.ones((), dtype=torch.int32, device=tz.device)
     level_dir = torch.where(tz > baseline, one, torch.where(-tz > baseline, -one, 0 * one))
     mres = matcher.search_by_projection(
-        uv, last_level, m.pt_desc[pid], valid_src, frame.features,
+        uv, last_level, desc_src, valid_src, frame.features,
         scale_factors, radius=radius, max_dist=TH_HIGH, ratio=0.9,
         level_dir=level_dir,
     )
     # Rotation-consistency histogram (ComputeThreeMaxima, ≈1600).
     mres = mres._replace(ok=rotation_consistency(last_angle, frame.angle, mres.idx, mres.ok))
 
-    bindings = _bind(frame.xy.shape[0], mres.ok, mres.idx, pid)
+    # Bindings take map matches only; temporary sources never reach the map.
+    N = frame.xy.shape[0]
+    bindings = _bind(N, mres.ok & is_map, mres.idx, pid)
     obs = _pose_obs_from_bindings(m, frame, bindings, inv_sigma2_lut)
+    # The retry gate counts map matches only.
     n_matches = obs.valid.sum()
     res = pose_optimization(T_pred, obs, cam)
+    if use_temp:
+        # Temporary matches per frame slot (map bindings win collisions).
+        ok_temp = mres.ok & has_temp
+        src_ids = torch.arange(last_xy.shape[0], dtype=torch.int32, device=ok_temp.device)
+        temp_src = ms.scatter_last(torch.full((N,), -1, dtype=torch.int32, device=ok_temp.device),
+                                   torch.where(ok_temp, mres.idx, 0),
+                                   torch.where(ok_temp, src_ids, -1))
+        temp_src = torch.where(bindings >= 0, -1, temp_src)
+        t_ok = (temp_src >= 0) & frame.valid
+        pts_w = torch.where(t_ok[:, None], p_w[temp_src.clamp(min=0).long()], obs.points_w)
+        res_full = pose_optimization(T_pred, obs._replace(points_w=pts_w, valid=obs.valid | t_ok),
+                                     cam)
+        # The reference's lax.cond as a select: no host read.
+        redo = (res.n_inliers < 20) & t_ok.any()
+        res = type(res)(*(torch.where(redo, b, a) for a, b in zip(res, res_full)))
     n_map = (res.inlier & (bindings >= 0)).sum()
     bindings = torch.where(res.inlier, bindings, NO_POINT)
     return res.T_cw, bindings, n_map, n_matches, res.n_inliers
@@ -363,6 +405,58 @@ def unproject_frame_depth(
 
 
 # ---------------------------------------------------------------------------
+# Relocalization (Tracking::Relocalization, src/Tracking.cc:≈1310)
+# ---------------------------------------------------------------------------
+
+
+def relocalize_candidate(
+    m: ms.MapState,
+    frame: Frame,
+    kf_id: int,
+    inv_sigma2_lut: torch.Tensor,
+    cam: CameraModel,
+    sample,
+    kf_nodes: Optional[torch.Tensor] = None,
+    frame_nodes: Optional[torch.Tensor] = None,
+    ratio: float = 0.75,
+    pnp_iters: int = 2048,
+):
+    """One relocalization attempt against a candidate keyframe: match the
+    frame's descriptors to the keyframe's bound map points (K2; restricted
+    to pairs in the same vocabulary node when node ids are given, the
+    node-gated SearchByBoW, ORBmatcher.cc:≈250), P3P RANSAC over
+    ``pnp_iters`` hypotheses, then the pose polish.  ``sample(valid, iters,
+    k)`` gives the RANSAC's (iters, k) sample indices (the tracker draws
+    them from its generator).
+
+    Returns (T, bindings, n_inliers, n_matches, pnp_ok), all on the
+    device."""
+    kf_pts = m.kf_point[kf_id]
+    kf_has = (kf_pts >= 0) & m.kf_kp_valid[kf_id]
+    pid = torch.where(kf_has, kf_pts, 0).long()
+    src_ok = kf_has & m.pt_valid[pid]
+    pair_mask = None
+    if kf_nodes is not None and frame_nodes is not None:
+        pair_mask = (kf_nodes[:, None] == frame_nodes[None, :]) & (kf_nodes[:, None] >= 0)
+    mres = match_descriptors(
+        m.kf_desc[kf_id], src_ok, frame.desc, frame.valid,
+        pair_mask=pair_mask, max_dist=TH_LOW, ratio=ratio, cross_check=True,
+    )
+    # 2D-3D correspondences: frame keypoint <- map point.
+    bindings = _bind(frame.xy.shape[0], mres.ok, mres.idx, pid)
+    bound = bindings >= 0
+    bpid = torch.where(bound, bindings, 0).long()
+    lvl = torch.clamp(frame.level, 0, inv_sigma2_lut.shape[0] - 1).long()
+    valid = bound & frame.valid & m.pt_valid[bpid]
+    pres = pnp.p3p_ransac(frame.xy, m.pt_pos[bpid], valid, inv_sigma2_lut[lvl], cam,
+                          iters=pnp_iters, samples=sample(valid, pnp_iters, 4))
+    obs = _pose_obs_from_bindings(m, frame, bindings, inv_sigma2_lut)
+    res = pose_optimization(pres.T_cw, obs, cam)
+    bindings = torch.where(res.inlier, bindings, NO_POINT)
+    return res.T_cw, bindings, res.n_inliers, obs.valid.sum(), pres.ok
+
+
+# ---------------------------------------------------------------------------
 # Host-side tracker (the state machine)
 # ---------------------------------------------------------------------------
 
@@ -373,7 +467,7 @@ class TrackState:
     LOST = 2
 
 
-_PATHS = {0: "none", 1: "motion", 2: "refkf"}
+_PATHS = {0: "none", 1: "motion", 2: "refkf", 3: "vo"}
 
 
 class Tracker:
@@ -383,26 +477,26 @@ class Tracker:
 
     ``metrics["host_syncs"]`` counts the device-to-host reads tracking
     made (each one waits for the device when the tensors are on a GPU).
+    The relocalization's RANSAC samples come from ``generator``, a
+    ``torch.Generator`` on the tracker's device seeded 0 as the reference
+    seeds its key, through ``_ransac_samples``.
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
                  loop_closer=None, device="cuda"):
-        for name, value, item in (
-            ("database", database, 14),
-            ("loop_closer", loop_closer, 15),
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Tracker({name}=...) is not ported yet (ROADMAP Queue 1 item {item})"
-                )
+        if loop_closer is not None:
+            raise NotImplementedError(
+                "Tracker(loop_closer=...) is not ported yet (ROADMAP Queue 1 item 15)")
+        from .kf_database import KeyframeDatabase
         from .local_mapping import LocalMapper
 
-        if local_mapper is not None and not isinstance(local_mapper, LocalMapper):
-            raise TypeError(
-                f"Tracker(local_mapper=...) takes this package's LocalMapper, "
-                f"not {type(local_mapper).__name__}"
-            )
+        for name, value, cls in (("local_mapper", local_mapper, LocalMapper),
+                                 ("database", database, KeyframeDatabase)):
+            if value is not None and not isinstance(value, cls):
+                raise TypeError(f"Tracker({name}=...) takes this package's {cls.__name__}, "
+                                f"not {type(value).__name__}")
         self.local_mapper = local_mapper
+        self.database = database
         self.settings = settings
         self.device = torch.device(device)
         self.cam = settings.camera_model()
@@ -418,6 +512,7 @@ class Tracker:
             settings.tpu.max_keyframes, settings.tpu.max_points,
             settings.tpu.max_keypoints, device=self.device,
         )
+        self.localization_only = False  # Tracking::InformOnlyTracking
         self.state = TrackState.NOT_INITIALIZED
         self.frame_id = 0
         self.last_frame: Optional[Frame] = None
@@ -426,6 +521,9 @@ class Tracker:
         self.velocity: Optional[torch.Tensor] = None
         self.ref_kf = 0
         self.last_kf_frame_id = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # Post-relocalization keyframe suppression (Tracking.cc:≈990).
+        self._no_kf_before = 0
         # Trajectory: (frame_id, T_cr 4x4, ref_kf, is_lost) per frame.
         self.trajectory = []
         self.n_tracked_history = []
@@ -435,7 +533,7 @@ class Tracker:
             "relocalizations": 0,
             "keyframes_created": 0,
             "last_inliers": 0,
-            "track_path": "",  # motion | refkf | none
+            "track_path": "",  # motion | refkf | vo | reloc | none
             "host_syncs": 0,
         }
 
@@ -492,6 +590,10 @@ class Tracker:
             ref_kf=self.ref_kf,
             weak=len(self.n_tracked_history) == 0 or self.n_tracked_history[-1] < 50,
             frames_since_kf=self.frame_id - self.last_kf_frame_id,
+            last_depth=lf.depth,
+            last_desc=lf.desc,
+            last_valid=lf.valid,
+            only_tracking=self.localization_only,
             last_angle=lf.angle,
         )
 
@@ -512,7 +614,8 @@ class Tracker:
         flags = self._host(out.flags)  # the per-frame decision readback
         ok = bool(flags[FLAG_OK])
         n_in = int(flags[FLAG_N_INLIERS])
-        need_kf = bool(flags[FLAG_NEED_KF])
+        # No keyframe within 10 frames of a relocalization (Tracking.cc:≈990).
+        need_kf = bool(flags[FLAG_NEED_KF]) and self.frame_id >= self._no_kf_before
         path = int(flags[FLAG_PATH])
 
         self.metrics["frames"] += 1
@@ -524,7 +627,7 @@ class Tracker:
             self.last_T = out.T_cw
             self.n_tracked_history.append(n_in)
             self.metrics["last_inliers"] = n_in
-            if need_kf:
+            if need_kf and not self.localization_only:
                 self._create_keyframe(frame, out.T_cw, out.bindings)
                 created = True
         else:
@@ -532,13 +635,87 @@ class Tracker:
             self.velocity = None
             self.metrics["frames_lost"] += 1
 
-        if created:
+        # Relocalize LOST frames, and visual-odometry frames too (mbVO:
+        # the reference prefers a relocalization, Tracking.cc:≈420).
+        relocated = False
+        if (self.state == TrackState.LOST or path == 3) and self.database is not None:
+            ok_reloc, T, _, n_r = self._relocalize(frame)
+            if ok_reloc:
+                self.state = TrackState.OK
+                self.last_T = T
+                self.velocity = None
+                self.n_tracked_history.append(n_r)
+                self.metrics["relocalizations"] += 1
+                self.metrics["track_path"] = "reloc"
+                self._mark_reloc()
+                relocated = True
+
+        if created or relocated:
             self._log_pose()
         else:
             self.trajectory.append(
                 (self.frame_id, out.T_cr, self.ref_kf, self.state != TrackState.OK)
             )
-        self._finish_frame(frame, out.bindings if (ok and not created) else None)
+        self._finish_frame(frame, out.bindings if (ok and not created and not relocated)
+                           else None)
+
+    # -- relocalization ------------------------------------------------------
+
+    def _ransac_samples(self, valid: torch.Tensor, iters: int, k: int) -> torch.Tensor:
+        """(iters, k) RANSAC sample indices from the tracker's generator."""
+        return pnp.draw_samples(valid, iters, k, self.generator)
+
+    def _mark_reloc(self):
+        """No keyframe insertion for 10 frames after a relocalization on a
+        map of more than 10 keyframes (Tracking.cc:≈990: right after it
+        the pose is anchored to old keyframes, and inserting at once would
+        duplicate them)."""
+        if self._host(self.map.n_kf) > 10:
+            self._no_kf_before = self.frame_id + 10
+
+    def _relocalize(self, frame: Frame):
+        """Tracking::Relocalization (Tracking.cc:≈1310): BoW candidates ->
+        matching + P3P RANSAC + pose polish per candidate -> local-map
+        top-up; accepted at 30 local inliers.  A candidate whose first pass
+        fails with at least 8 matches is tried again with a looser ratio
+        (0.9), no node gate and 8192 hypotheses, at most 3 times a call (the
+        analog of the reference's widened SearchByProjection retry,
+        ≈1370).  Reads the device once for the candidates and once per
+        attempt: LOST frames only."""
+        db = self.database
+        syncs0 = db.host_syncs
+        cands = db.detect_relocalization_candidates(self.map, frame.desc, frame.valid)
+        self.metrics["host_syncs"] += db.host_syncs - syncs0
+        frame_nodes = db.frame_nodes(frame.desc, frame.valid) if len(cands) else None
+        retries_left = 3
+        for c in cands.tolist():
+            T, bindings, n_in, n_match, pnp_ok = relocalize_candidate(
+                self.map, frame, c, self.inv_sigma2, self.cam, self._ransac_samples,
+                kf_nodes=db.nodes_for(c), frame_nodes=frame_nodes,
+            )
+            ok_h, n_in_h, n_match_h = self._host(torch.stack([pnp_ok.to(n_in.dtype), n_in,
+                                                              n_match.to(n_in.dtype)]))
+            if (not ok_h or n_in_h < 10) and n_match_h >= 8 and retries_left > 0:
+                retries_left -= 1
+                T, bindings, n_in, n_match, pnp_ok = relocalize_candidate(
+                    self.map, frame, c, self.inv_sigma2, self.cam, self._ransac_samples,
+                    ratio=0.9, pnp_iters=8192,
+                )
+                ok_h, n_in_h = self._host(torch.stack([pnp_ok.to(n_in.dtype), n_in]))
+            if not ok_h or n_in_h < 10:
+                continue
+            local_ids, local_valid = gather_local_points(
+                self.map, bindings, n_local_kfs=self.settings.tpu.local_window)
+            T, bindings, n_in, self.map = track_local_map(
+                self.map, frame, T, bindings, local_ids, local_valid,
+                self.cam, self.scale_factors, self.inv_sigma2,
+            )
+            n_in_h = self._host(n_in)
+            if n_in_h >= 30:
+                self.ref_kf = c
+                self.last_bindings = bindings
+                return True, T, bindings, n_in_h
+        return False, None, None, 0
 
     # -- initialization and keyframes ----------------------------------------
 
@@ -559,6 +736,8 @@ class Tracker:
         m, kf0 = insert_keyframe(m, frame, T0, self.frame_id, bind, -1)
         self.map = ms.update_point_stats(m, self.scale_factors)
         self.ref_kf = self._host(kf0)
+        if self.database is not None:
+            self.database.add_keyframe(self.ref_kf, frame.desc, frame.valid)
         self.last_T = T0
         self.last_bindings = bind
         self.state = TrackState.OK
@@ -570,7 +749,8 @@ class Tracker:
 
     def _create_keyframe(self, frame: Frame, T, bindings):
         """Insert the frame as a keyframe, spawning close-depth points for
-        its unbound keypoints (Tracking.cc:≈1060), then run the local
+        its unbound keypoints (Tracking.cc:≈1060), add it to the keyframe
+        database, then run the local
         mapper on it synchronously.  Mapping may cull points whose slots
         are reused later, so the held bindings are scrubbed against the
         pool; trajectory entries of culled keyframes are re-anchored and
@@ -586,6 +766,8 @@ class Tracker:
         self.ref_kf = self._host(kf_id)
         self.last_kf_frame_id = self.frame_id
         self.last_bindings = bindings
+        if self.database is not None:
+            self.database.add_keyframe(self.ref_kf, frame.desc, frame.valid)
         if self.local_mapper is None:
             return
         self.map = self.local_mapper.process_keyframe(self.map, self.ref_kf)
@@ -635,9 +817,10 @@ class Tracker:
     def _maybe_compact(self, n_kf: int):
         """Compact the keyframe pool when it is within 4 slots of capacity
         and something was culled; every keyframe id the tracker holds is
-        remapped.  The trajectory must already be re-anchored against the
-        pool.  (The reference's pending-chunk and async branches belong to
-        the chunked tracker and the async pipeline, not ported yet.)"""
+        remapped, the keyframe database's rows too.  The trajectory must
+        already be re-anchored against the pool.  (The reference's
+        pending-chunk and async branches belong to the chunked tracker and
+        the async pipeline, not ported yet.)"""
         if n_kf < self.map.kf_capacity - 4:
             return
         m2, kf_map = ms.compact_map(self.map)
@@ -653,6 +836,8 @@ class Tracker:
         self.trajectory = [
             (fid, T_cr, max(r(ref), 0), lost) for fid, T_cr, ref, lost in self.trajectory
         ]
+        if self.database is not None:
+            self.database.remap(kf_map)
 
     # -- bookkeeping -------------------------------------------------------
 

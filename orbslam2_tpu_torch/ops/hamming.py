@@ -27,6 +27,16 @@ HISTO_LENGTH = 30  # rotation-consistency histogram bins
 _INVALID_DIST = 10_000  # > any possible 256-bit distance
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its uint32 bits), as int32: the SWAR
+    count in int64, where no step overflows."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
 def bit_signs(desc: torch.Tensor) -> torch.Tensor:
     """(N, 8) int32 -> (N, 256) float32: each descriptor bit as +1 / -1."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)

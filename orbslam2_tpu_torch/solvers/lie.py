@@ -1,5 +1,6 @@
 """SE(3) operations on torch tensors — the part of
-``orbslam2_tpu/solvers/lie.py`` that RGB-D tracking and local mapping call.
+``orbslam2_tpu/solvers/lie.py`` that tracking, local mapping and
+relocalization call (the Sim(3) family comes with loop closing).
 
 SE3 is a (..., 4, 4) homogeneous matrix; tangent vectors are
 ``[rho(3), phi(3)]`` (translation first), as in the reference package.
@@ -26,6 +27,11 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(Phi: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([Phi[..., 2, 1], Phi[..., 0, 2], Phi[..., 1, 0]], dim=-1)
+
+
 def _sinc_terms(theta2: torch.Tensor):
     """Taylor-safe (A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3)."""
     theta = torch.sqrt(theta2 + _EPS)
@@ -47,11 +53,42 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return _eye3_like(Phi) + A[..., None, None] * Phi + B[..., None, None] * (Phi @ Phi)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map: (..., 3, 3) -> (..., 3) axis-angle, safe near 0 and pi (the
+    reference's branches and clamps)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos_t)
+    w = vee(R - R.transpose(-1, -2)) * 0.5  # sin(theta) * axis
+    sin_t = torch.sin(theta)
+    small_scale = 0.5 + theta * theta / 12.0
+    scale = torch.where(sin_t > 1e-6, theta / (2.0 * sin_t + _EPS), small_scale)
+    phi_generic = 2.0 * w * scale[..., None]
+    # Near pi: the axis is the largest column of R + I.
+    Rp = R + _eye3_like(R)
+    diag = torch.stack([Rp[..., 0, 0], Rp[..., 1, 1], Rp[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    col = Rp.gather(-1, k[..., None, None].expand(Rp.shape[:-1] + (1,)))[..., 0]
+    axis = col / (torch.linalg.norm(col, dim=-1, keepdim=True) + _EPS)
+    near_pi = (torch.pi - theta) < 1e-3
+    return torch.where(near_pi[..., None], axis * theta[..., None], phi_generic)
+
+
 def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """SO(3) left Jacobian J_l(phi): the V matrix of the SE3 exp."""
     _, B, C = _sinc_terms((phi * phi).sum(-1))
     Phi = hat(phi)
     return _eye3_like(Phi) + B[..., None, None] * Phi + C[..., None, None] * (Phi @ Phi)
+
+
+def _left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    Phi = hat(phi)
+    half = 0.5 * theta
+    cot = torch.where(theta2 < 1e-8, 1.0 / 12.0 + theta2 / 720.0,
+                      (1.0 - half * torch.cos(half) / (torch.sin(half) + _EPS)) / (theta2 + _EPS))
+    return _eye3_like(Phi) - 0.5 * Phi + cot[..., None, None] * (Phi @ Phi)
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -70,6 +107,13 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     R = so3_exp(phi)
     t = (_left_jacobian(phi) @ rho[..., None])[..., 0]
     return rt_to_mat(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) log: (..., 4, 4) -> (..., 6) [rho, phi]."""
+    phi = so3_log(T[..., :3, :3])
+    rho = (_left_jacobian_inv(phi) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ against the port's ``CameraModel``: a 3-D landmark field, each landmark
 carrying a binary texture sprite, rendered with a textured background
 plane along a smooth camera trajectory.  The same seeds give the same
 frames as the reference package.  ATE against the ground truth is the
-end-to-end metric.  The room/loop fixtures come with loop closing.
+end-to-end metric.  The room world and its circular loop sequence
+(``make_loop_sequence``) are the relocalization and loop-closure fixtures.
 """
 
 from __future__ import annotations
@@ -303,3 +304,230 @@ def ate_rmse(est_poses_wc: np.ndarray, gt_poses_wc: np.ndarray, align: bool = Tr
         est = (s * (R @ est.T)).T + t
     err = est - gt
     return float(np.sqrt((err**2).sum(axis=1).mean()))
+
+
+# ---------------------------------------------------------------------------
+# Room world: 4 textured walls + circular trajectory (loop-closure fixture)
+# ---------------------------------------------------------------------------
+
+
+def render_room_frame(
+    world: SyntheticWorld,
+    pose_wc: np.ndarray,
+    cam: CameraModel,
+    half_x: float = 6.0,
+    half_z: float = 6.0,
+    noise: float = 2.0,
+    seed: int = 0,
+    with_depth: bool = False,
+    supersample: int = 2,
+):
+    """Render a frame inside a rectangular room with 4 textured walls.
+
+    Walls: x = +-half_x, z = +-half_z (each with its own texture seed so
+    opposite walls don't alias in place recognition); floor/ceiling are
+    featureless gray.  Landmark sprites splat on top as in render_frame.
+
+    Rendered at ``supersample``x and box-downsampled: without the pixel-
+    footprint integration a real sensor performs, glancing-angle texture
+    aliases and binary descriptors decorrelate between frames.
+    """
+    ss = supersample
+    H, W = cam.height * ss, cam.width * ss
+    fx, fy = float(cam.fx) * ss, float(cam.fy) * ss
+    cx, cy = float(cam.cx) * ss, float(cam.cy) * ss
+    rng = np.random.default_rng(seed)
+
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    d_cam = np.stack(
+        [(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu, np.float64)], -1
+    )
+    Rwc = pose_wc[:3, :3].astype(np.float64)
+    C = pose_wc[:3, 3].astype(np.float64)
+    d_w = d_cam @ Rwc.T
+
+    img = np.full((H, W), 100.0)
+    depth_best = np.full((H, W), np.inf)
+
+    # (axis, sign, texture seed): planes axis = sign * half
+    walls = [
+        (0, +1, half_x, 201), (0, -1, half_x, 202),
+        (2, +1, half_z, 203), (2, -1, half_z, 204),
+    ]
+    for axis, sign, half, tseed in walls:
+        tex = _plane_texture(seed=tseed)
+        ts = tex.shape[0]
+        denom = d_w[..., axis]
+        s = (sign * half - C[axis]) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        Xw = C + s[..., None] * d_w
+        # In-plane coordinates: the other horizontal axis + y.
+        other = 2 if axis == 0 else 0
+        in_a = Xw[..., other]
+        in_b = Xw[..., 1]
+        hit = (
+            (s > 0.1)
+            & (np.abs(in_a) <= (half_z if axis == 0 else half_x) + 1e-6)
+            & (np.abs(in_b) <= 6.0)
+        )
+        # Bilinear texture sample.
+        txf = in_a * 24.0
+        tyf = in_b * 24.0
+        tx0 = np.floor(txf).astype(np.int64)
+        ty0 = np.floor(tyf).astype(np.int64)
+        fxw = txf - tx0
+        fyw = tyf - ty0
+        t00 = tex[ty0 % ts, tx0 % ts]
+        t01 = tex[ty0 % ts, (tx0 + 1) % ts]
+        t10 = tex[(ty0 + 1) % ts, tx0 % ts]
+        t11 = tex[(ty0 + 1) % ts, (tx0 + 1) % ts]
+        val = (
+            t00 * (1 - fxw) * (1 - fyw) + t01 * fxw * (1 - fyw)
+            + t10 * (1 - fxw) * fyw + t11 * fxw * fyw
+        )
+        # Camera-z depth: d_cam = (x, y, 1), so z_cam = s * d_cam_z = s.
+        z_cam = s * d_cam[..., 2]
+        closer = hit & (z_cam > 0) & (z_cam < depth_best)
+        img = np.where(closer, val, img)
+        depth_best = np.where(closer, z_cam, depth_best)
+
+    # Landmark sprites (same splat as render_frame).
+    Tcw = np.linalg.inv(pose_wc.astype(np.float64))
+    p_c = (Tcw[:3, :3] @ world.points.T).T + Tcw[:3, 3]
+    z = p_c[:, 2]
+    order = np.argsort(-z)
+    S = world.sprites.shape[1]
+    r = S // 2
+    for i in order:
+        if z[i] <= 0.3:
+            continue
+        u = fx * p_c[i, 0] / z[i] + cx
+        v = fy * p_c[i, 1] / z[i] + cy
+        ui, vi = int(np.floor(u)), int(np.floor(v))
+        if not (r + 1 <= ui < W - r - 2 and r + 1 <= vi < H - r - 2):
+            continue
+        if z[i] > depth_best[vi, ui] + 0.3:
+            continue  # occluded by a wall
+        du, dv = u - ui, v - vi
+        # Upsample the sprite to the supersampled grid so its on-screen
+        # size is resolution-independent.
+        sp_hi = np.kron(world.sprites[i], np.ones((ss, ss), np.float32))
+        if sp_hi.shape[0] % 2 == 0:  # keep an odd size so the slice is 2r+1
+            sp_hi = np.pad(sp_hi, ((0, 1), (0, 1)), mode="edge")
+        Sh = sp_hi.shape[0]
+        rh = Sh // 2
+        if not (rh + 1 <= ui < W - rh - 2 and rh + 1 <= vi < H - rh - 2):
+            continue
+        P = np.pad(sp_hi, 1, mode="edge")
+        shifted = (
+            du * dv * P[0:Sh, 0:Sh]
+            + (1 - du) * dv * P[0:Sh, 1 : Sh + 1]
+            + du * (1 - dv) * P[1 : Sh + 1, 0:Sh]
+            + (1 - du) * (1 - dv) * P[1 : Sh + 1, 1 : Sh + 1]
+        )
+        img[vi - rh : vi + rh + 1, ui - rh : ui + rh + 1] = shifted
+        if with_depth:
+            depth_best[vi - rh : vi + rh + 1, ui - rh : ui + rh + 1] = z[i]
+
+    # Box-downsample back to the target resolution.
+    Ho, Wo = cam.height, cam.width
+    img = img.reshape(Ho, ss, Wo, ss).mean(axis=(1, 3))
+    img = img + rng.normal(0.0, noise, size=img.shape)
+    out = np.clip(img, 0, 255).astype(np.float32)
+    if with_depth:
+        d = depth_best.reshape(Ho, ss, Wo, ss)[:, 0, :, 0]
+        d = np.where(np.isfinite(d), d, 0.0).astype(np.float32)
+        return out, d
+    return out
+
+
+def make_room_world(n_points: int = 500, half_x: float = 6.0,
+                    half_z: float = 6.0, seed: int = 0) -> SyntheticWorld:
+    """Landmarks in a shell just inside the 4 walls."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    per_wall = n_points // 4
+    for axis, sign, half in [
+        (0, 1, half_x), (0, -1, half_x), (2, 1, half_z), (2, -1, half_z)
+    ]:
+        other = 2 if axis == 0 else 0
+        o_half = half_z if axis == 0 else half_x
+        p = np.zeros((per_wall, 3))
+        p[:, axis] = sign * (half - 0.05)
+        p[:, other] = rng.uniform(-o_half + 0.5, o_half - 0.5, per_wall)
+        p[:, 1] = rng.uniform(-4.0, 4.0, per_wall)
+        pts.append(p)
+    pts = np.concatenate(pts).astype(np.float32)
+    base = make_world(n_points=len(pts), seed=seed)
+    return SyntheticWorld(points=pts, sprites=base.sprites[: len(pts)])
+
+
+def loop_poses(n_frames: int, circle_radius: float, extra_turns: float = 1.25) -> np.ndarray:
+    """(F, 4, 4) float32 camera-to-world poses of ``make_loop_sequence``:
+    round the circle, heading along its tangent."""
+    poses = np.zeros((n_frames, 4, 4), np.float64)
+    for i in range(n_frames):
+        a = 2 * np.pi * extra_turns * i / n_frames
+        pos = np.array(
+            [circle_radius * np.sin(a), 0.0, -circle_radius * np.cos(a)]
+        )
+        # Heading: tangent direction (derivative of position).
+        yaw = a
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        poses[i, :3, :3] = R
+        poses[i, :3, 3] = pos
+        poses[i, 3, 3] = 1.0
+    return poses.astype(np.float32)
+
+
+def make_loop_sequence(
+    cam: CameraModel,
+    n_frames: int = 48,
+    circle_radius: float = 2.5,
+    n_points: int = 500,
+    with_depth: bool = False,
+    seed: int = 0,
+    extra_turns: float = 1.25,
+    stereo_baseline: float = 0.0,
+    room_half: float = None,
+) -> SyntheticSequence:
+    """Circular trajectory inside the room: heading tangent to the circle,
+    closing a full loop (slightly more than 360 deg so the start viewpoint
+    is revisited) — the loop-closure fixture.  ``stereo_baseline`` > 0
+    renders (F, 2, H, W) stereo pairs (the KITTI-class fixture);
+    ``room_half`` scales the room for large circles."""
+    kwargs = {}
+    if room_half is not None:
+        kwargs["half_x"] = room_half
+        kwargs["half_z"] = room_half
+    world = make_room_world(n_points=n_points, seed=seed, **kwargs)
+    poses = loop_poses(n_frames, circle_radius, extra_turns)
+    frames, depths = [], ([] if with_depth else None)
+    for f in range(n_frames):
+        if stereo_baseline > 0.0:
+            right = poses[f].copy()
+            right[:3, 3] = right[:3, 3] + right[:3, :3] @ np.array(
+                [stereo_baseline, 0, 0], np.float32
+            )
+            im_l = render_room_frame(world, poses[f], cam,
+                                     seed=seed + 300 + f, **kwargs)
+            im_r = render_room_frame(world, right, cam,
+                                     seed=seed + 7000 + f, **kwargs)
+            frames.append(np.stack([im_l, im_r]))
+            continue
+        out = render_room_frame(
+            world, poses[f], cam, seed=seed + 300 + f,
+            with_depth=with_depth, **kwargs
+        )
+        if with_depth:
+            frames.append(out[0])
+            depths.append(out[1])
+        else:
+            frames.append(out)
+    return SyntheticSequence(
+        world=world,
+        poses_wc=poses,
+        images=np.stack(frames),
+        depths=np.stack(depths) if depths is not None else None,
+        timestamps=np.arange(n_frames, dtype=np.float64) / 30.0,
+    )

@@ -23,6 +23,7 @@ from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.solvers import ba_kernels as tbk
 from orbslam2_tpu_torch.solvers import local_ba as tlb
 from orbslam2_tpu_torch.utils.camera import make_camera
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TRIU3 = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
 

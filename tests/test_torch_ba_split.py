@@ -21,6 +21,7 @@ import torch
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.solvers import ba_kernels as bk
 from orbslam2_tpu_torch.utils.camera import make_camera
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WARP = 32
 # (C, N): the split chosen.  The windows below; a ragged shape; one

@@ -43,6 +43,7 @@ from orbslam2_tpu_torch.solvers import lie as tlie
 from orbslam2_tpu_torch.utils import camera as tcam
 from orbslam2_tpu_torch.utils import synthetic as tsyn
 from tests.test_camera_config import MATRIX_YAML, TUM1_YAML
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def bench_settings():

@@ -18,6 +18,7 @@ from orbslam2_tpu.utils.camera import make_camera
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.ops import fast as tfast
 from orbslam2_tpu_torch.ops import pyramid as tpyr
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _port(img: np.ndarray) -> np.ndarray:

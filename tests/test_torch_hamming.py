@@ -13,6 +13,7 @@ import torch
 
 from orbslam2_tpu.ops import hamming as jh
 from orbslam2_tpu_torch.ops import hamming as th
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _desc(rng, n):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports without JAX, dispatches by
-tensor device, runs on the card unless asked for the CPU, and refuses what
-it has not ported yet."""
+tensor device, runs on the card unless asked for the CPU, builds the
+reference's keyframe database in every system, and refuses what it has not
+ported yet."""
 
 import inspect
 import subprocess
@@ -14,11 +15,13 @@ import torch
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.config import CameraSettings, OrbSettings, Settings, TpuSettings
 from orbslam2_tpu_torch.models import map_state
+from orbslam2_tpu_torch.models.kf_database import KeyframeDatabase
 from orbslam2_tpu_torch.models.local_mapping import LocalMapper
-from orbslam2_tpu_torch.models.system import SlamSystem
+from orbslam2_tpu_torch.models.system import SlamSystem, _default_vocabulary
 from orbslam2_tpu_torch.models.tracking import Tracker
 from orbslam2_tpu_torch.ops import fast, hamming
 from orbslam2_tpu_torch.ops.extractor import OrbExtractor
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -40,6 +43,11 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.ops.matcher",
     "orbslam2_tpu_torch.ops.stereo",
     "orbslam2_tpu_torch.ops.twoview",
+    "orbslam2_tpu_torch.ops.sim3_solve",
+    "orbslam2_tpu_torch.ops.pnp",
+    "orbslam2_tpu_torch.ops.bow",
+    "orbslam2_tpu_torch.utils.native",
+    "orbslam2_tpu_torch.utils.vocab",
     "orbslam2_tpu_torch.solvers.ba_kernels",
     "orbslam2_tpu_torch.solvers.local_ba",
     "orbslam2_tpu_torch.models.frame",
@@ -47,6 +55,7 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.models.tracking",
     "orbslam2_tpu_torch.models.track_fused",
     "orbslam2_tpu_torch.models.local_mapping",
+    "orbslam2_tpu_torch.models.kf_database",
     "orbslam2_tpu_torch.models.system",
 ]
 
@@ -92,8 +101,6 @@ def test_tf32_is_off():
           async_mapping=True), "item 10"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, mesh=object()),
      "item 17"),
-    (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False,
-          vocabulary=object()), "item 14"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -101,13 +108,41 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_tracker_refuses_mapper_database_loop_closer():
-    # A mapper that is not this package's LocalMapper is refused; the BoW
-    # database and loop closing are not ported yet.
+    # A mapper or database that is not this package's is refused; this
+    # package's keyframe database is accepted; loop closing is not ported
+    # yet.
     with pytest.raises(TypeError, match="LocalMapper"):
         Tracker(_settings(), local_mapper=object(), device="cpu")
-    for kw in ("database", "loop_closer"):
-        with pytest.raises(NotImplementedError):
-            Tracker(_settings(), **{kw: object()}, device="cpu")
+    with pytest.raises(TypeError, match="KeyframeDatabase"):
+        Tracker(_settings(), database=object(), device="cpu")
+    db = KeyframeDatabase(_default_vocabulary(), 16, device="cpu")
+    assert Tracker(_settings(), database=db, device="cpu").database is db
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Tracker(_settings(), loop_closer=object(), device="cpu")
+
+
+def test_vocabulary_is_accepted():
+    """``vocabulary=`` takes this package's Vocabulary (the database is
+    built on it) and refuses anything else."""
+    rng = np.random.default_rng(0)
+    from orbslam2_tpu_torch.ops.bow import train_vocabulary
+
+    vocab = train_vocabulary(rng.integers(0, 2**32, (500, 8), dtype=np.uint32), k=5, levels=2)
+    s = SlamSystem(_settings(), "rgbd", enable_mapping=False, enable_loop_closing=False,
+                   vocabulary=vocab, device="cpu")
+    assert s.vocabulary is vocab and s.database.vocab.n_words == 25
+    assert s.tracker.database is s.database
+    with pytest.raises(TypeError, match="Vocabulary"):
+        SlamSystem(_settings(), "rgbd", enable_loop_closing=False, vocabulary=object(),
+                   device="cpu")
+
+
+def test_every_system_builds_the_default_database():
+    s = SlamSystem(_settings(), "stereo", enable_loop_closing=False, device="cpu")
+    assert s.database.vocab.n_words == 1000 and not s.database.sparse
+    assert s.database.bow.shape == (16, 1000) and s.database.bow.device.type == "cpu"
+    assert s.tracker.database is s.database
+    assert s.metrics()["relocalizations"] == 0
 
 
 def test_stereo_system_constructs_on_cpu():

@@ -31,6 +31,7 @@ from orbslam2_tpu_torch.ops import matcher as tmatch
 from orbslam2_tpu_torch.ops import twoview as ttv
 from orbslam2_tpu_torch.ops.extractor import Features as TFeatures
 from torch_carried_map import carried_map
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TRI_TOL = 1e-4
 EPI_TOL_PX = 2e-3

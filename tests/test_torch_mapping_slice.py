@@ -23,6 +23,7 @@ from orbslam2_tpu.models.tracking import Tracker
 from orbslam2_tpu.utils import synthetic as jsyn
 from orbslam2_tpu_torch import convert, kernels
 from orbslam2_tpu_torch.models.system import SlamSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 POS_TOL_M = 2e-4
 ROT_TOL_RAD = 2e-4

@@ -18,6 +18,7 @@ from orbslam2_tpu.ops.pallas_kernels import projection_best2_pallas
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.ops import matcher
 from tests.test_pallas_matcher import _mk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _port_args(uv, xy, rr2, la, lb, va, vb, da, db):

@@ -18,6 +18,7 @@ from orbslam2_tpu.utils import synthetic as jsyn
 from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.models.system import SlamSystem
 from orbslam2_tpu_torch.models.track_fused import _fused_track
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 POS_TOL_M = 1e-3
 ROT_TOL_RAD = 1e-3
@@ -122,10 +123,15 @@ def test_fused_track_on_the_carried_state(runs):
 
 
 def test_a_localization_only_context_is_refused(runs):
+    # Localization-only mode is ported now: a context in that mode carries
+    # across with its flag and the last frame's VO sources.
     ctx = jax.tree.map(np.array, runs["ref"]._make_ctx())
-    convert.track_ctx_from_numpy(ctx, "cpu")
-    with pytest.raises(NotImplementedError, match="localization-only"):
-        convert.track_ctx_from_numpy(ctx._replace(only_tracking=np.array(True)), "cpu")
+    assert convert.track_ctx_from_numpy(ctx, "cpu").only_tracking is False
+    out = convert.track_ctx_from_numpy(ctx._replace(only_tracking=np.array(True)), "cpu")
+    assert out.only_tracking is True
+    np.testing.assert_array_equal(out.last_depth.numpy(), ctx.last_depth)
+    np.testing.assert_array_equal(out.last_desc.numpy(), ctx.last_desc.view(np.int32))
+    np.testing.assert_array_equal(out.last_valid.numpy(), ctx.last_valid)
 
 
 def test_trajectory_savers(runs, tmp_path):

@@ -33,6 +33,7 @@ from orbslam2_tpu_torch.models import frame as tframe
 from orbslam2_tpu_torch.ops import extractor as text
 from orbslam2_tpu_torch.ops import stereo as tstereo
 from tests.test_slam_e2e import small_settings
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 UR_TOL_PX = 1e-3
 REFINE_TOL_PX = 1e-4

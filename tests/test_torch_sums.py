@@ -15,6 +15,7 @@ import torch
 
 from orbslam2_tpu_torch.models import map_state as ms
 from orbslam2_tpu_torch.solvers import local_ba as tlb
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 

@@ -26,6 +26,7 @@ from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.models import map_state as tms
 from orbslam2_tpu_torch.models import tracking as ttr
 from orbslam2_tpu_torch.solvers import pose_opt as tpo
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T_ATOL = 1e-4
 
@@ -182,8 +183,8 @@ def test_track_motion_model(run, gated_temp_sources, radius):
     # Frame 3 finds few matches in the 7 px window, so the tracker retries
     # at 14 px (the doubled window); both are compared.  The reference's
     # RGB-D chain also hands it the last frame's temporary VO sources,
-    # gated off outside localization-only mode (which the port does not
-    # have yet): with the gate off it must give the port's result.
+    # gated off outside localization-only mode: with the gate off it must
+    # give the port's map-only result.
     jargs, targs, jkw, tkw, temp, th_depth = _motion_args(run, 2)
     if gated_temp_sources:
         jkw.update({k: jnp.asarray(v) for k, v in temp.items()},
@@ -195,6 +196,35 @@ def test_track_motion_model(run, gated_temp_sources, radius):
     for o, r in zip(out[1:], ref[1:]):
         _eq(o, r)
     assert int(ref[3]) >= (20 if radius > 7.0 else 1)
+
+
+@pytest.mark.parametrize("kept", [1.0, 0.03])
+def test_track_motion_model_with_temporary_vo_sources(run, kept):
+    # Localization-only mode: the last frame's unbound close-depth
+    # keypoints are extra sources.  With 3% of the map points left the map
+    # matches give fewer than 20 inliers and the pose is optimized again
+    # with the temporary ones (the reference's second stage).  The depth
+    # cap takes the whole scene (it lies beyond the tracker's close-depth
+    # threshold of 4 m).
+    jargs, targs, jkw, tkw, temp, _ = _motion_args(run, 2)
+    th_depth = 20.0
+    pt_valid = np.array(jargs[0].pt_valid)
+    live = np.nonzero(pt_valid)[0]
+    pt_valid[live[int(len(live) * kept):]] = False
+    jm = jargs[0]._replace(pt_valid=jnp.asarray(pt_valid))
+    tm = targs[0]._replace(pt_valid=_t(pt_valid))
+    jkw.update({k: jnp.asarray(v) for k, v in temp.items()}, temp_depth_cap=th_depth,
+               use_temp=jnp.asarray(True))
+    tkw.update({k: _t(v) for k, v in temp.items()}, temp_depth_cap=th_depth, use_temp=True)
+    cam = run["tr"].cam
+    ref = jtr.track_motion_model(jm, *jargs[1:], jnp.float32(14.0), baseline=cam.bf / cam.fx,
+                                 **jkw)
+    out = ttr.track_motion_model(tm, *targs[1:], 14.0, baseline=run["port"].cam.baseline, **tkw)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=T_ATOL)
+    for o, r in zip(out[1:], ref[1:]):
+        _eq(o, r)
+    if kept < 1.0:
+        assert int(ref[2]) < 20 <= int(ref[4])  # the temporary sources carried the pose
 
 
 def test_gather_local_points_and_track_local_map(run):

@@ -2,6 +2,8 @@
 
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py            # RGB-D
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --stereo   # stereo
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc    # kidnap
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -14,6 +16,27 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   (1241x376, fx 718.856, bf 386.1448, th_depth 35, 2000 features, 8
   levels, 2048 keypoints, 256 keyframes, 65536 points) on the smoke run's
   24-frame stereo sequence (baseline bf / fx).
+* ``--reloc``: the kidnap of ``chip_smoke.py``'s ``reloc`` phase at the
+  bench settings: ``SlamSystem`` (synchronous mapping, loop closing off,
+  so with its keyframe database) on ``make_loop_sequence(n_frames=48,
+  circle_radius=1.5, seed=5, n_points=900)`` fed frames 0-23 and then 4-7,
+  with a vocabulary (k=10, L=4) trained on the descriptors of frames 0, 4,
+  ..., 20.  Prints the ATE over the fed frames and over the tracked ones
+  (state OK: a lost frame holds the last pose; SE(3) alignment), the
+  relocalization count, the first frame (position in the feed) that
+  relocalized, and the per-frame states and paths.
+* ``--reloc-carried``: the same kidnap through the reference and, on the
+  CPU, through the port twice, both drawing the reference's RANSAC
+  samples (``torch_carried_tracker.JaxSampler``): from frame 0, and
+  carried from the reference's whole state before fed frame
+  ``RELOC_CARRY_AT`` (``carry_tracker``), the first frame that the port's
+  run from frame 0 loses and the reference tracks.  Prints, for each run,
+  the per-frame states, paths and counts, the ATEs, and the per-frame
+  distance of its poses from the reference's (translation, m; rotation,
+  rad).  It shows where the port's run from frame 0 parts from the
+  reference and whether the port follows the reference through the loss
+  and the relocalization from the same state (``chip_smoke.py``'s
+  ``reloc`` limits cite it).  About 25 minutes and 3 GB on the CPU.
 """
 
 import json
@@ -31,6 +54,10 @@ from orbslam2_tpu.models.tracking import Tracker  # noqa: E402
 from orbslam2_tpu.utils import synthetic  # noqa: E402
 
 N_FRAMES = 24
+# chip_smoke.py's kidnap (RELOC_SEQ and RELOC_FEED there).
+RELOC_SEQ = dict(n_frames=48, circle_radius=1.5, with_depth=True, seed=5, n_points=900)
+RELOC_FEED = list(range(24)) + [4, 5, 6, 7]
+RELOC_CARRY_AT = 16
 # chip_smoke.py's stereo sequence (STEREO_SEQ there).
 STEREO_SEQ = dict(n_points=3000, seed=1, radius=0.4, forward=0.8)
 
@@ -55,8 +82,101 @@ def kitti_settings():
     )
 
 
+def reloc_setup():
+    from orbslam2_tpu.ops.bow import train_vocabulary
+    from orbslam2_tpu.ops.extractor import OrbExtractor
+
+    s = smoke_settings()
+    seq = synthetic.make_loop_sequence(s.camera_model(), **RELOC_SEQ)
+    ex = OrbExtractor(s.orb, s.tpu)
+    descs = np.concatenate([np.asarray(f.desc)[np.asarray(f.valid)]
+                            for f in (ex(seq.images[i]) for i in range(0, 24, 4))])
+    return s, seq, train_vocabulary(descs, k=10, levels=4, seed=0)
+
+
+def reloc_main():
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+
+    s, seq, vocab = reloc_setup()
+    system = SlamSystem(s, Sensor.RGBD, enable_loop_closing=False, vocabulary=vocab)
+    states, paths = [], []
+    for j, i in enumerate(RELOC_FEED):
+        system.track_rgbd(seq.images[i], seq.depths[i], float(j))
+        states.append(int(system.tracker.state))
+        paths.append(system.tracker.metrics["track_path"])
+    poses = system.poses_wc()
+    gt = seq.poses_wc[RELOC_FEED]
+    ok = np.asarray(states) == 1
+    print(json.dumps({
+        "ate_m": float(synthetic.ate_rmse(poses, gt, with_scale=False)),
+        "ate_tracked_m": float(synthetic.ate_rmse(poses[ok], gt[ok], with_scale=False)),
+        "relocalizations": system.tracker.metrics["relocalizations"],
+        "first_reloc": paths.index("reloc") if "reloc" in paths else None,
+        "keyframes_created": system.tracker.metrics["keyframes_created"],
+        "states": states,
+        "paths": paths,
+    }))
+
+
+def _rot_angle(R):
+    return float(np.arctan2(np.linalg.norm(R - R.T) / np.sqrt(2.0), np.trace(R) - 1.0))
+
+
+def reloc_carried_main():
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+    from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.models.system import SlamSystem as PortSystem
+    from torch_carried_tracker import JaxSampler, carry_tracker
+
+    s, seq, vocab = reloc_setup()
+    ts = convert.settings_from_reference(s)
+    port_vocab = convert.vocabulary_from_numpy(jax.tree.map(np.asarray, vocab))
+    ref = SlamSystem(s, Sensor.RGBD, enable_loop_closing=False, vocabulary=vocab)
+    runs = {"port": PortSystem(ts, "rgbd", enable_loop_closing=False, vocabulary=port_vocab,
+                               device="cpu"),
+            "carried": PortSystem(ts, "rgbd", enable_loop_closing=False, vocabulary=port_vocab,
+                                  device="cpu")}
+    runs["port"].tracker._ransac_samples = JaxSampler(ref.tracker.init_key)
+    logs = {"ref": [], "port": [], "carried": []}
+    for j, i in enumerate(RELOC_FEED):
+        if j == RELOC_CARRY_AT:
+            carry_tracker(ref, runs["carried"])
+        for name, system in (("ref", ref), ("port", runs["port"]), ("carried", runs["carried"])):
+            if name == "carried" and j < RELOC_CARRY_AT:
+                continue
+            system.track_rgbd(seq.images[i], seq.depths[i], float(j))
+            m = system.tracker.metrics
+            logs[name].append((int(system.tracker.state), m["track_path"],
+                               m["relocalizations"], m["keyframes_created"]))
+    gt = seq.poses_wc[RELOC_FEED]
+    ref_poses = ref.poses_wc()
+    out = {}
+    for name, system in (("ref", ref),) + tuple(runs.items()):
+        poses = np.asarray(system.poses_wc(), np.float64)
+        ok = np.array([st == 1 for st, *_ in logs[name]])
+        own = slice(len(RELOC_FEED) - len(logs[name]), None)
+        out[name] = {
+            "ate_m": float(synthetic.ate_rmse(poses, gt, with_scale=False)),
+            "ate_tracked_m": float(synthetic.ate_rmse(poses[own][ok], gt[own][ok],
+                                                      with_scale=False)),
+            "first_reloc": next((j for j, r in enumerate(logs[name]) if r[1] == "reloc"), None),
+            "log": logs[name],
+            "dt_m": [float(np.abs(a[:3, 3] - b[:3, 3]).max())
+                     for a, b in zip(poses, ref_poses)],
+            "dr_rad": [_rot_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(poses, ref_poses)],
+        }
+    out["carried"]["first_reloc"] = (None if out["carried"]["first_reloc"] is None
+                                     else out["carried"]["first_reloc"] + RELOC_CARRY_AT)
+    out["carry_at"] = RELOC_CARRY_AT
+    print(json.dumps(out))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--reloc-carried" in sys.argv[1:]:
+        return reloc_carried_main()
+    if "--reloc" in sys.argv[1:]:
+        return reloc_main()
     stereo = "--stereo" in sys.argv[1:]
     s = kitti_settings() if stereo else smoke_settings()
     cam = s.camera_model()
