@@ -17,7 +17,8 @@ on failure (the script then exits non-zero and prints no result):
               mixed into one call, with the extractor's threshold at 0 and at
               7; CUDA-event medians of 20 calls and device time per launch
   4. K2       packed-Hamming kernel against its plain version (torch.equal)
-              at the tracker's shapes and ragged ones
+              at the tracker's shapes, ragged ones and loop closing's 2048
+              candidate points x 1024 and 2048 features
   5. K3       fused projection best-2 against its plain version (torch.equal
               on index, best and second) at the projection searches' shapes
               (4096 and 1024 sources x 1024 and 2048 targets), ragged ones
@@ -30,13 +31,14 @@ on failure (the script then exits non-zero and prints no result):
   6. K4/K5    bundle-adjustment kernels against their plain versions at the
               local-BA windows (C = 48 and 16 cameras x N = 1024, 16 x
               2048), a ragged shape (3 x 77) and shapes aimed at the
-              cluster split (BA_SHAPES), robust weights both ways, with a
+              cluster split and the joint global BA's C = 32, 128 (N =
+              1024) and 256 (N = 2048) (BA_SHAPES), robust weights both ways, with a
               seventh of the points behind the cameras and with none:
               blocks and pack rows plane-scaled within 1e-4, chi2 equal at
               the 1e9 sentinels and within 1e-4 relative elsewhere, sums
               within 1e-5 relative; a second call on the same inputs gives
               the same bits; the split and grid of each shape, and device
-              time per launch at the windows
+              time per launch at the windows and at the joint GBA's shapes
   7. slice    RGB-D tracking with mapping off, bench settings, 24 synthetic
               frames on the card: every frame OK, ATE <= 0.02 m, launch
               counts (K1 once a frame, K3 at least twice a frame from frame
@@ -91,8 +93,28 @@ on failure (the script then exits non-zero and prints no result):
  13. localization  frames 0-11 of phase 8's sequence with mapping, then
               ``activate_localization_mode()`` and frames 12-23: every frame
               OK, no keyframe or point added
+ 14. loop     the reference's loop test (``make_loop_sequence(n_frames=84,
+              circle_radius=1.5, seed=5)``, local BA and fuse off) at the
+              bench settings with the fixture's baseline through
+              ``SlamSystem(settings, "rgbd", vocabulary=...)`` with the
+              reference's defaults, twice: every frame OK, a loop edge
+              spanning the circle, ATE below max(1.15 x the loop-off ATE,
+              0.05 m) and within 0.003 m of the reference's
+              (LOOP_LIMIT_ATE_M); in the first pass every call that verifies
+              a candidate rerun on the CPU from the card's state with the
+              card's samples (LoopWitness: candidates, streaks, gate
+              scalars, decisions, edges and kf_point equal, S_CL within
+              1e-4, corrected poses within 2e-4 m and rad) and the launches
+              inside each step counted (K2 in the Sim3 pipeline,
+              SearchBySim3, the neighbourhood projection and SearchAndFuse;
+              K4 and K5 in the joint GBA at C = _next_pow2(keyframes)); the
+              second pass timed (ms per detection; per verified candidate
+              and per correction stage wall, device, launches and host
+              syncs; peak device memory), bit-identical to the first, and
+              copied before its first correction into the loop-off run
 
-Phases 7-10 also report the keyframe database's entries: every system
+Phases 7-10 and 12-13 build their systems with loop closing off, as
+before it was ported; phase 14 runs it.  Phases 7-10 also report the keyframe database's entries: every system
 builds one, and each keyframe takes a BoW transform (plain torch, no
 hand-written kernel).  Each path's launch counts are set to 0 just before
 it runs and read just after.  The last lines are the kernel table as one JSON object, the card's
@@ -103,12 +125,14 @@ from __future__ import annotations
 
 import collections
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 
 K1_SOURCE = "orbslam2_tpu_torch/csrc/fast_nms.cu"
 K1_REPLACES = "orbslam2_tpu/ops/pallas_kernels.py:162"
@@ -191,11 +215,15 @@ K3_SHAPES = [(4096, 1024), (1024, 1024), (4096, 2048), (2048, 2048), (77, 300), 
 # K4/K5 checked at the local-BA windows (C = 48 and 16 cameras x N = 1024,
 # stereo's N = 2048), a ragged shape and shapes aimed at the split: one
 # observation, chunks not a multiple of the block, S = 8 with few
-# observations, more cameras than the block target needs; timed at the
-# windows.
+# observations, more cameras than the block target needs; and at the joint
+# global BA's shapes; timed at the windows and at the joint GBA's shapes.
 BA_SHAPES = [(48, 1024), (16, 1024), (3, 77), (16, 2048), (1, 1), (1, 130), (5, 1000),
-             (64, 2048)]
-BA_TIMED = [(48, 1024), (16, 1024), (16, 2048)]
+             (64, 2048),
+             # the joint global BA's C = _next_pow2(keyframes): bench pools
+             # (N = 1024, up to 128 keyframes) and the KITTI point's (N =
+             # 2048, up to 256); ba_split gives S = 1 at 128 and 256
+             (32, 1024), (128, 1024), (256, 2048)]
+BA_TIMED = [(48, 1024), (16, 1024), (16, 2048), (32, 1024), (128, 1024), (256, 2048)]
 K4_OPS_PER_OBS = {"f32": 450}
 K5_OPS_PER_OBS = {"f32": 42}
 # The card's maximum SM clock in Hz, read in phase 1.
@@ -665,17 +693,23 @@ KERNEL_TAGS = ("fast_nms_kernel", "hamming_kernel", "projection_best2_kernel",
                "ba_normal_equations_kernel", "ba_chi2_kernel")
 
 
+def stage_prefixes():
+    """The prefixes of the named ranges of local mapping and loop closing."""
+    from orbslam2_tpu_torch.models import local_mapping, loop_closing
+
+    return (local_mapping.STAGE_PREFIX, loop_closing.STAGE_PREFIX)
+
+
 def device_ops(prof):
     """The device operations of a profile (kernels, copies, fills), without
     the device-side spans of named ranges."""
     import torch
 
-    from orbslam2_tpu_torch.models.local_mapping import STAGE_PREFIX
-
+    prefixes = stage_prefixes()
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(STAGE_PREFIX)]
+            and not e.name.startswith(prefixes)]
 
 
 def kernel_label(name: str):
@@ -783,11 +817,13 @@ def profile_window(system, seq, frames, card, label):
     return stats, prof
 
 
-def mapping_stage_lines(prof, card: str) -> None:
-    """[layer] lines for the stages of the mapping passes in a profile (the
-    named ranges of LocalMapper.process_keyframe): host time under the
-    profiler, device time, device operations and launches of the hand-
-    written kernels, per pass.  The profiler links each PyTorch operation's
+def mapping_stage_lines(prof, card: str, prefix=None, what="mapping stage",
+                        syncs=None) -> None:
+    """[layer] lines for the stages in a profile (the named ranges that
+    start with ``prefix``: by default LocalMapper.process_keyframe's): host
+    time under the profiler, device time, device operations and launches of
+    the hand-written kernels, per pass, and with ``syncs`` ({stage: host
+    syncs}) the host syncs.  The profiler links each PyTorch operation's
     device work to the operation, hence to its range; the hand-written
     kernels, launched through ctypes, are linked to none, and count for the
     range in whose host time they start (the device idles most of the
@@ -796,20 +832,22 @@ def mapping_stage_lines(prof, card: str) -> None:
 
     from orbslam2_tpu_torch.models.local_mapping import STAGE_PREFIX
 
+    prefix = prefix or STAGE_PREFIX
+    prefixes = stage_prefixes()
     own = kernel_label
 
     def ops(e):
         mine = [k.duration for k in e.kernels
-                if not k.name.startswith(STAGE_PREFIX) and not own(k.name)]
+                if not k.name.startswith(prefixes) and not own(k.name)]
         return mine + [d for ch in e.cpu_children for d in ops(ch)]
 
     hand_written = [e for e in device_ops(prof) if own(e.name)]
     stages = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(STAGE_PREFIX):
-            stages.setdefault(e.name[len(STAGE_PREFIX):], []).append(e)
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(prefix):
+            stages.setdefault(e.name[len(prefix):], []).append(e)
     if not stages:
-        raise AssertionError("the profile window holds no mapping pass")
+        raise AssertionError(f"the profile window holds no range {prefix}*")
     totals = [0.0, 0.0, 0]
     for name, events in stages.items():
         n = len(events)
@@ -821,10 +859,11 @@ def mapping_stage_lines(prof, card: str) -> None:
         dev_ms = sum(k) / n / 1e3
         own_counts = collections.Counter(own(s.name) for s in started)
         totals = [totals[0] + wall_ms, totals[1] + dev_ms, totals[2] + len(k) / n]
-        phase("layer", f"{card}: mapping stage {name}: wall {wall_ms:.3f} ms/pass, device "
+        phase("layer", f"{card}: {what} {name}: wall {wall_ms:.3f} ms/pass, device "
               f"{dev_ms:.3f} ms/pass, {len(k) / n:.0f} device operations/pass, hand-written "
-              f"kernels {dict(own_counts)} in {n} passes")
-    phase("layer", f"{card}: mapping stages together: wall {totals[0]:.3f} ms/pass, device "
+              f"kernels {dict(own_counts)} in {n} passes" +
+              (f", {syncs.get(name, 0) / n:.1f} host syncs/pass" if syncs is not None else ""))
+    phase("layer", f"{card}: {what}s together: wall {totals[0]:.3f} ms/pass, device "
           f"{totals[1]:.3f} ms/pass, {totals[2]:.0f} device operations/pass")
 
 
@@ -1314,16 +1353,28 @@ def bow_check(card):
               f"each); candidates equal to the CPU's: {ids}")
 
 
-def reloc_sequence(settings):
-    """``make_loop_sequence(cam, **RELOC_SEQ)``, all its frames rendered (the
-    feed shows 0-23)."""
+def render_loop_sequence(name: str):
+    """Render the kidnap's ("reloc": ``RELOC_SEQ`` at the bench settings) or
+    the loop phase's ("loop": ``LOOP_SEQ`` at ``loop_settings``)
+    ``make_loop_sequence``; returns (sequence, seconds).  ``main`` runs it
+    in a worker process while the earlier phases use the card."""
     from orbslam2_tpu_torch.utils import synthetic
 
     t0 = time.perf_counter()
+    settings, kw = {"reloc": (bench_settings, RELOC_SEQ), "loop": (loop_settings, LOOP_SEQ)}[name]
+    seq = synthetic.make_loop_sequence(settings().camera_model(), **kw)
+    return seq, time.perf_counter() - t0
+
+
+def rendered(future, name: str, settings):
+    """The sequence of a ``render_loop_sequence`` future, its render time
+    printed."""
+    t0 = time.perf_counter()
+    seq, secs = future.result()
     cam = settings.camera_model()
-    seq = synthetic.make_loop_sequence(cam, **RELOC_SEQ)
-    phase("reloc", f"{RELOC_SEQ['n_frames']} loop frames of {cam.width}x{cam.height} rendered "
-          f"in {time.perf_counter() - t0:.2f} s")
+    phase(name, f"{len(seq.images)} loop frames of {cam.width}x{cam.height} rendered in "
+          f"{secs:.2f} s in a worker process beside the earlier phases (waited "
+          f"{time.perf_counter() - t0:.2f} s for it)")
     return seq
 
 
@@ -1525,7 +1576,7 @@ def reloc_pass(settings, seq, vocab, profile_relocs=False, witness=None):
     return system, states, relocs, k23
 
 
-def reloc_check(settings, card):
+def reloc_check(settings, card, seq_future):
     """The kidnap twice on the card (the first pass reruns each
     relocalization on the CPU, RelocWitness; the second profiles each
     relocalization and must repeat the first bit for bit): a
@@ -1538,7 +1589,7 @@ def reloc_check(settings, card):
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.utils import synthetic
 
-    seq = reloc_sequence(settings)
+    seq = rendered(seq_future, "reloc", settings)
     vocab = reloc_vocabulary(settings, seq)
     gt = seq.poses_wc[RELOC_FEED]
     runs = []
@@ -1642,9 +1693,539 @@ def localization_check(settings, seq, card):
             raise AssertionError(f"localization mode changed {key}: {before[key]} -> {after[key]}")
     return launches
 
+# -- 14. loop closing -----------------------------------------------------------
+
+# The loop test of the reference (tests/test_slam_e2e.py::TestLoopClosing)
+# at the bench settings: make_loop_sequence(n_frames=84, circle_radius=1.5,
+# with_depth=True, seed=5), 640x480, 1000 features, the fixture's baseline
+# (bf = 0.5 fx: its 320x240 settings have bf 160 at fx 320), a vocabulary
+# (k=10, L=4) trained on every 6th frame's descriptors, local BA and fuse
+# off.  The JAX reference's SlamSystem with its defaults there
+# (`JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --loop`, on the
+# CPU): loop edge (3, 11) verified at keyframe 11 (121 matches, 86
+# distinct, RANSAC ok, 128 Sim3 inliers, 100 projections), 12 keyframes,
+# every frame tracked, ATE 0.09654369611853293 m with loop closing and
+# 0.09974148086995073 m without.  With the bench settings' own bf (40) the
+# reference loses frames 27-60 and closes no loop.
+LOOP_SEQ = dict(n_frames=84, circle_radius=1.5, with_depth=True, seed=5)
+LOOP_REF_EDGE = (3, 11)
+LOOP_REF_ATE_M = 0.09654369611853293
+LOOP_REF_ATE_OFF_M = 0.09974148086995073
+LOOP_LIMIT_ATE_M = LOOP_REF_ATE_M + 0.003
+# The witness's tolerances (the CPU loop tests'): S_CL, corrected poses;
+# the points (the CPU loop tests' rule, 1e-3 m + 1e-3 |X|) and what
+# update_point_stats derives from them and the poses, (atol, rtol).
+LOOP_S_TOL = 1e-4
+LOOP_POSE_TOL_M = 2e-4
+LOOP_POSE_TOL_RAD = 2e-4
+LOOP_MAP_TOL = {"pt_pos": (1e-3, 1e-3), "pt_normal": (1e-3, 0.0), "pt_min_dist": (1e-3, 1e-3),
+                "pt_max_dist": (1e-3, 1e-3)}
+
+
+def loop_settings():
+    """bench_settings with the loop fixture's baseline, bf = 0.5 fx."""
+    import dataclasses
+
+    s = bench_settings()
+    return dataclasses.replace(s, camera=dataclasses.replace(s.camera, bf=0.5 * s.camera.fx))
+
+
+def loop_vocabulary(settings, seq):
+    """k=10, L=4 trained on the descriptors the port extracts on the card
+    from every 6th frame (the reference script trains on its own)."""
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch.ops.bow import train_vocabulary
+    from orbslam2_tpu_torch.ops.extractor import OrbExtractor
+
+    ex = OrbExtractor(settings.orb, settings.tpu, device="cuda")
+    descs = []
+    for i in range(0, LOOP_SEQ["n_frames"], 6):
+        f = ex(torch.as_tensor(seq.images[i], device="cuda"))
+        descs.append(f.desc[f.valid].cpu().numpy().view(np.uint32))
+    return train_vocabulary(np.concatenate(descs), k=10, levels=4, seed=0)
+
+
+def loop_system(settings, vocab, device):
+    """``SlamSystem(settings, "rgbd", vocabulary=...)`` with the reference's
+    defaults (mapping and loop closing on), local BA and fuse off as the
+    fixture has them."""
+    from orbslam2_tpu_torch.models.system import SlamSystem
+
+    system = SlamSystem(settings, "rgbd", vocabulary=vocab, device=device)
+    system.local_mapper.enable_ba = False
+    system.local_mapper.enable_fuse = False
+    return system
+
+
+def loop_state(lc):
+    """The loop closer's host state: streaks, edges, last loop keyframe and
+    metrics (copies)."""
+    import copy
+
+    return (dict(lc.candidate_streak), [(a, b, S.copy()) for a, b, S in lc.loop_edges],
+            lc.last_loop_kf, copy.deepcopy(lc.metrics))
+
+
+class LoopWitness:
+    """Reruns on the CPU every ``process_keyframe`` of the card that reaches
+    ``_compute_sim3``, from the card's state (its map, keyframe database and
+    loop closer copied across) with the RANSAC samples the card drew
+    replayed in order.  Equal: the candidates, the streaks, each verified
+    candidate's gate scalars (matches, distinct, RANSAC ok, inliers,
+    projections) and pass, the accept or reject decision, the loop edges and
+    the last loop keyframe, and the map's integer and boolean fields
+    (``kf_point`` after the fuse and the GBA's unbinding among them).
+    Within tolerance: each refined and accepted S_CL (LOOP_S_TOL), the
+    corrected keyframe poses (LOOP_POSE_TOL_M / _RAD), the points and the
+    normals and scale bands derived from them (LOOP_MAP_TOL: the float
+    sums of the pose graph and the GBA run in other orders on the
+    card)."""
+
+    def __init__(self, settings, vocab):
+        self.settings, self.vocab = settings, vocab
+        self.calls = self.candidates = self.accepted = 0
+        self.worst = {"S": 0.0, "m": 0.0, "rad": 0.0}
+        self.active = False
+
+    def attach(self, lc):
+        """Record what the card's loop closer ``lc`` does in each call."""
+        import torch
+
+        from orbslam2_tpu_torch.models.map_state import MapState
+
+        process, compute, gates = lc.process_keyframe, lc._compute_sim3, lc._apply_sim3_gates
+        detect, sample = lc.db.detect_loop_candidates, lc._ransac_samples
+
+        def recorded_process(m, kf_id, abort=None):
+            torch.cuda.synchronize()
+            self.state = (MapState(*(t.cpu() for t in m)), database_on(lc.db, "cpu"),
+                          loop_state(lc))
+            self.cands, self.drawn, self.gates, self.reached = [], [], [], False
+            out = process(m, kf_id, abort)
+            if self.reached:
+                self.check(lc, kf_id, out)
+            return out
+
+        def recorded_compute(m, kf_c, kf_l):
+            self.reached = True
+            return compute(m, kf_c, kf_l)
+
+        def recorded_gates(m, kf_c, kf_l, res, **kw):
+            out = gates(m, kf_c, kf_l, res, **kw)
+            self.gates.append((kf_c, kf_l, [int(x) for x in res[:7]], res[7].copy(), kw,
+                               None if out is None else out.copy()))
+            return out
+
+        def recorded_detect(*a, **kw):
+            out = detect(*a, **kw)
+            self.cands.append((out[0].tolist(), {k: sorted(v) for k, v in out[2].items()}))
+            return out
+
+        def recorded_sample(valid, iters, k):
+            out = sample(valid, iters, k)
+            self.drawn.append((valid.clone(), out.clone()))  # device copies, no host read
+            return out
+
+        lc.process_keyframe, lc._compute_sim3, lc._apply_sim3_gates = (
+            recorded_process, recorded_compute, recorded_gates)
+        lc.db.detect_loop_candidates, lc._ransac_samples = recorded_detect, recorded_sample
+
+    def check(self, lc, kf_id, out):
+        import numpy as np
+        import torch
+
+        from orbslam2_tpu_torch.models.loop_closing import LoopCloser
+
+        m_in, db, (streak, edges, last, metrics) = self.state
+        where = f"loop closing at keyframe {kf_id} (call {self.calls} of the witness)"
+        cpu = LoopCloser(self.settings, db, fix_scale=lc.fix_scale, enable_gba=lc.enable_gba,
+                         gba_mode=lc.gba_mode, device="cpu")
+        cpu.candidate_streak, cpu.loop_edges, cpu.last_loop_kf, cpu.metrics = (
+            streak, edges, last, metrics)
+        cands, gates = [], []
+        detect, gate = db.detect_loop_candidates, cpu._apply_sim3_gates
+
+        def cpu_detect(*a, **kw):
+            res = detect(*a, **kw)
+            cands.append((res[0].tolist(), {k: sorted(v) for k, v in res[2].items()}))
+            return res
+
+        def cpu_gates(m, kf_c, kf_l, res, **kw):
+            o = gate(m, kf_c, kf_l, res, **kw)
+            gates.append((kf_c, kf_l, [int(x) for x in res[:7]], res[7], kw, o))
+            return o
+
+        drawn = [(v.cpu(), x.cpu()) for v, x in self.drawn]
+
+        def replay(valid, iters, k):
+            if not drawn:
+                raise AssertionError(f"{where}: the CPU drew more RANSAC samples than the card")
+            v, x = drawn.pop(0)
+            if not torch.equal(valid, v) or x.shape != (iters, k):
+                raise AssertionError(f"{where}: a Sim3 RANSAC has other pairs on the CPU "
+                                     f"({int((valid != v).sum())} of {v.shape[0]} differ)")
+            return x
+
+        db.detect_loop_candidates, cpu._apply_sim3_gates, cpu._ransac_samples = (
+            cpu_detect, cpu_gates, replay)
+        m_cpu = cpu.process_keyframe(m_in, kf_id)
+        if cands != self.cands:
+            raise AssertionError(f"{where}: candidates {self.cands} on the card, {cands} on "
+                                 f"the CPU")
+        if drawn:
+            raise AssertionError(f"{where}: the card drew {len(drawn)} more RANSAC samples")
+        if list(cpu.candidate_streak.items()) != list(lc.candidate_streak.items()):
+            raise AssertionError(f"{where}: streaks {lc.candidate_streak} on the card, "
+                                 f"{cpu.candidate_streak} on the CPU")
+        if len(gates) != len(self.gates):
+            raise AssertionError(f"{where}: {len(self.gates)} verifications on the card, "
+                                 f"{len(gates)} on the CPU")
+        for (c1, l1, g1, S1, kw1, o1), (c2, l2, g2, S2, kw2, o2) in zip(self.gates, gates):
+            if (c1, l1, g1, kw1) != (c2, l2, g2, kw2) or (o1 is None) != (o2 is None):
+                raise AssertionError(f"{where}: candidate {l1}: gate scalars {g1} {kw1} "
+                                     f"accepted {o1 is not None} on the card, {g2} {kw2} "
+                                     f"{o2 is not None} on the CPU")
+            self.worst["S"] = max(self.worst["S"], float(np.abs(S1 - S2).max()))
+        if self.worst["S"] > LOOP_S_TOL:
+            raise AssertionError(f"{where}: refined Sim3 {self.worst['S']} from the CPU's")
+        if ([(a, b) for a, b, _ in cpu.loop_edges] != [(a, b) for a, b, _ in lc.loop_edges]
+                or cpu.last_loop_kf != lc.last_loop_kf):
+            raise AssertionError(f"{where}: loop edges {[(a, b) for a, b, _ in lc.loop_edges]} "
+                                 f"on the card, {[(a, b) for a, b, _ in cpu.loop_edges]} on "
+                                 f"the CPU")
+        for (_, _, S1), (_, _, S2) in zip(lc.loop_edges, cpu.loop_edges):
+            self.worst["S"] = max(self.worst["S"], float(np.abs(S1 - S2).max()))
+        for f in type(m_cpu)._fields:
+            x, y = getattr(out, f).cpu(), getattr(m_cpu, f)
+            if f == "kf_pose_cw":
+                kv = m_cpu.kf_valid
+                a = np.linalg.inv(x[kv].double().numpy())
+                b = np.linalg.inv(y[kv].double().numpy())
+                self.worst["m"] = max(self.worst["m"], float(np.abs(a[:, :3, 3] - b[:, :3, 3])
+                                                             .max(initial=0.0)))
+                self.worst["rad"] = max([self.worst["rad"]] + [
+                    rot_angle(p[:3, :3].T @ q[:3, :3]) for p, q in zip(a, b)])
+                bad = (self.worst["m"] > LOOP_POSE_TOL_M or self.worst["rad"] > LOOP_POSE_TOL_RAD)
+            elif f in LOOP_MAP_TOL:
+                atol, rtol = LOOP_MAP_TOL[f]
+                err = float(((x - y).abs() / (atol + rtol * y.abs())).max()) if x.numel() else 0.0
+                self.worst[f] = max(self.worst.get(f, 0.0), err)
+                bad = err > 1.0
+            else:
+                bad = not torch.equal(x, y)
+            if bad:
+                raise AssertionError(f"{where}: the map's {f} differs from the CPU's "
+                                     f"(worst so far {self.worst})")
+        self.calls += 1
+        self.candidates += len(gates)
+        self.accepted += sum(o is not None for *_, o in gates)
+
+
+def loop_counters(lc_module, gba_module):
+    """Count the hand-written kernels' launches inside each loop-closing
+    step on the card (the module functions and ``_sim3_pipeline``, wrapped
+    on the loop closer in ``instrument``), and the camera count of each
+    joint GBA solve.  Returns (counts {step: Counter}, cams [C, ...],
+    restore)."""
+    import torch
+
+    from orbslam2_tpu_torch import kernels
+
+    counts = collections.defaultdict(collections.Counter)
+    cams = []
+    names = ("search_by_sim3", "project_loop_matches", "_fuse_into_keyframe",
+             "run_joint_global_ba")
+    saved = {n: getattr(lc_module, n) for n in names}
+    schur = gba_module.schur_ba_core
+
+    def counted(name, fn):
+        def call(m, *a, **kw):
+            if not m.kf_pose_cw.is_cuda:  # the witness's rerun on the CPU
+                return fn(m, *a, **kw)
+            l0 = dict(kernels.LAUNCHES)
+            out = fn(m, *a, **kw)
+            counts[name].update({k: kernels.LAUNCHES[k] - l0[k] for k in l0})
+            counts[name]["calls"] += 1
+            return out
+        return call
+
+    def schur_recorded(poses0, *a, **kw):
+        if poses0.device.type == "cuda":
+            cams.append(poses0.shape[0])
+        return schur(poses0, *a, **kw)
+
+    for n in names:
+        setattr(lc_module, n, counted(n, saved[n]))
+    gba_module.schur_ba_core = schur_recorded
+
+    def restore():
+        for n in names:
+            setattr(lc_module, n, saved[n])
+        gba_module.schur_ba_core = schur
+        torch.cuda.synchronize()
+
+    return counts, cams, counted, restore
+
+
+def loop_pass(settings, seq, vocab, witness=None, timed=False, fork_at=None):
+    """One run of the loop sequence on the card.  ``witness``: a LoopWitness
+    reruns each verifying call on the CPU, and the launches inside each
+    loop-closing step are counted.  ``timed``: each detection, verification
+    and correction is timed (the verification and the correction under the
+    profiler).  ``fork_at``: the system is copied, without its loop closer,
+    before that frame.  Returns a dict of the run."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.models import loop_closing as lc_module
+    from orbslam2_tpu_torch.solvers import global_ba as gba_module
+
+    system = loop_system(settings, vocab, "cuda")
+    tr, lc = system.tracker, system.loop_closer
+    run = {"detect_ms": [], "verify": [], "correct": [], "states": [], "corrected_at": []}
+    counts = cams = None
+    restore = None
+    if witness is not None:
+        witness.attach(lc)
+        counts, cams, counted, restore = loop_counters(lc_module, gba_module)
+        lc._sim3_pipeline = counted("_sim3_pipeline", lc._sim3_pipeline)
+    correct = lc._correct_loop
+
+    def corrected(m, kf_c, kf_l, S_CL):
+        run["corrected_at"].append(tr.frame_id)
+        if not timed:
+            return correct(m, kf_c, kf_l, S_CL)
+        syncs = collections.Counter()
+        stage = ["-"]
+        real_range = lc_module.record_function
+
+        class tracked_range(real_range):
+            def __init__(self, name):
+                super().__init__(name)
+                self.stage = name[len(lc_module.STAGE_PREFIX):]
+
+            def __enter__(self):
+                stage.append(self.stage)
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                stage.pop()
+                return super().__exit__(*exc)
+
+        lc_module.record_function = tracked_range
+        l0, s0 = dict(kernels.LAUNCHES), lc.host_syncs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # Each synchronizing call (torch's sync debug mode) is counted for
+        # the stage whose range is open.
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = lambda msg, *a, **kw: syncs.update(
+                    [stage[-1]] if "synchroniz" in str(msg) else [])
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = correct(m, kf_c, kf_l, S_CL)
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            lc_module.record_function = real_range
+        dev = device_ops(prof)
+        run["correct"].append(dict(
+            kf=(kf_l, kf_c), wall_ms=wall, device_ms=sum(e.time_range.elapsed_us() for e in dev)
+            / 1e3, device_ops=len(dev), counted_syncs=lc.host_syncs - s0, syncs=dict(syncs),
+            launches={k: kernels.LAUNCHES[k] - l0[k] for k in l0}, prof=prof,
+            peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20,
+            peak_total_mb=torch.cuda.max_memory_allocated() / 2**20))
+        return out
+
+    lc._correct_loop = corrected
+    if timed:
+        process, compute = lc.process_keyframe, lc._compute_sim3
+        detect = lc.db.detect_loop_candidates
+        reached, queried = [], []
+
+        def timed_process(m, kf_id, abort=None):
+            reached.clear()
+            queried.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = process(m, kf_id, abort)
+            torch.cuda.synchronize()
+            if queried and not reached:
+                run["detect_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def queried_detect(*a, **kw):
+            queried.append(1)
+            return detect(*a, **kw)
+
+        lc.db.detect_loop_candidates = queried_detect
+
+        def timed_compute(m, kf_c, kf_l):
+            reached.append(1)
+            l0, s0 = dict(kernels.LAUNCHES), lc.host_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = compute(m, kf_c, kf_l)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            dev = device_ops(prof)
+            run["verify"].append(dict(
+                kf=(kf_l, kf_c), accepted=out is not None, wall_ms=wall,
+                device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+                device_ops=len(dev), syncs=lc.host_syncs - s0,
+                launches={k: kernels.LAUNCHES[k] - l0[k] for k in l0}))
+            return out
+
+        lc.process_keyframe, lc._compute_sim3 = timed_process, timed_compute
+    forked = None
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for i in range(LOOP_SEQ["n_frames"]):
+            if i == fork_at:
+                if lc.loop_edges:
+                    raise AssertionError(f"a loop was corrected before frame {fork_at}")
+                # A deep copy; the random generators are copied by their state.
+                gens = [tr.generator, lc.generator]
+                memo = {id(g): torch.Generator(device=g.device) for g in gens}
+                for g in gens:
+                    memo[id(g)].set_state(g.get_state())
+                forked = copy.deepcopy(system, memo)
+                forked.loop_closer = forked.tracker.loop_closer = None
+            system.track_rgbd(torch.as_tensor(seq.images[i], device="cuda"),
+                              torch.as_tensor(seq.depths[i], device="cuda"), float(i))
+            run["states"].append(int(tr.state))
+        torch.cuda.synchronize()
+    finally:
+        if restore is not None:
+            restore()
+    run.update(system=system, forked=forked, secs=time.perf_counter() - t0,
+               launches=dict(kernels.LAUNCHES), counts=counts, cams=cams)
+    return run
+
+
+def loop_check(card, seq_future):
+    """The loop phase: two passes of the loop sequence through the port's
+    ``SlamSystem`` with the reference's defaults (the first with the
+    LoopWitness and the step launch counts, the second timed and forked
+    before its first correction into the loop-off run), which must agree
+    bit for bit.  Returns the first pass's launch counts."""
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch.models.loop_closing import STAGE_PREFIX
+    from orbslam2_tpu_torch.solvers.global_ba import _next_pow2
+    from orbslam2_tpu_torch.utils import synthetic
+
+    settings = loop_settings()
+    seq = rendered(seq_future, "loop", settings)
+    vocab = loop_vocabulary(settings, seq)
+    witness = LoopWitness(settings, vocab)
+    first = loop_pass(settings, seq, vocab, witness=witness)
+    if not first["corrected_at"]:
+        raise AssertionError(f"no loop closed: metrics {first['system'].loop_closer.metrics}")
+    second = loop_pass(settings, seq, vocab, timed=True, fork_at=first["corrected_at"][0])
+    off = second["forked"]
+    for i in range(first["corrected_at"][0], LOOP_SEQ["n_frames"]):
+        off.track_rgbd(torch.as_tensor(seq.images[i], device="cuda"),
+                       torch.as_tensor(seq.depths[i], device="cuda"), float(i))
+    gt = seq.poses_wc
+    system = first["system"]
+    lc = system.loop_closer
+    n_kf = int(system.map.n_kf)
+    edges = [(a, b) for a, b, _ in lc.loop_edges]
+    ate = synthetic.ate_rmse(system.poses_wc(), gt, with_scale=False)
+    ate_off = synthetic.ate_rmse(off.poses_wc(), gt, with_scale=False)
+    launches = first["launches"]
+    phase("loop", f"pass 1: {LOOP_SEQ['n_frames']} frames in {first['secs']:.2f} s, states "
+          f"{sorted(collections.Counter(first['states']).items())}, {n_kf} keyframes, loop edges "
+          f"{edges} (the reference's {[LOOP_REF_EDGE]}), corrected at frames "
+          f"{first['corrected_at']}, ATE {ate:.6f} m (reference {LOOP_REF_ATE_M:.6f} m, limit "
+          f"{LOOP_LIMIT_ATE_M:.6f} m), loop-off ATE {ate_off:.6f} m (reference "
+          f"{LOOP_REF_ATE_OFF_M:.6f} m, forked before frame {first['corrected_at'][0]}), "
+          f"loop closer metrics {lc.metrics}, launches {launches}")
+    phase("loop", f"pass 1 on the CPU from the card's state (in the time above): "
+          f"{witness.calls} calls that verified {witness.candidates} candidates "
+          f"({witness.accepted} accepted): candidates, streaks, gate scalars, decisions, loop "
+          f"edges and the maps' integer fields equal; S_CL within {witness.worst['S']:.3g}, "
+          f"corrected poses within {witness.worst['m']:.3g} m and {witness.worst['rad']:.3g} rad "
+          f"(limits {LOOP_S_TOL:g}, {LOOP_POSE_TOL_M:g} m, {LOOP_POSE_TOL_RAD:g} rad); the "
+          f"derived floats' worst share of LOOP_MAP_TOL " + ", ".join(
+              f"{f} {witness.worst.get(f, 0.0):.3g}" for f in LOOP_MAP_TOL))
+    if witness.calls == 0 or witness.accepted != len(edges):
+        raise AssertionError(f"the witness reran {witness.calls} calls, {witness.accepted} "
+                             f"accepted, for {len(edges)} loop edges")
+    if any(st != 1 for st in first["states"]):
+        raise AssertionError(f"frames not OK on the loop sequence: {first['states']}")
+    a, b = edges[0]
+    if not b - a > 0.5 * n_kf:
+        raise AssertionError(f"loop edge {edges[0]} does not span the circle ({n_kf} keyframes)")
+    if not ate < max(1.15 * ate_off, 0.05):
+        raise AssertionError(f"loop-closed ATE {ate} m against {ate_off} m without")
+    if not ate <= LOOP_LIMIT_ATE_M:
+        raise AssertionError(f"loop-closed ATE {ate} m > {LOOP_LIMIT_ATE_M} m")
+    # The launches inside each loop-closing step (pass 1's counters).
+    counts, cams = first["counts"], first["cams"]
+    phase("loop", "launches inside the loop-closing steps (pass 1): " + "; ".join(
+        f"{name}: {c['calls']} calls, K2 {c['hamming_matrix']}, K3 {c['projection_best2']}, "
+        f"K4 {c['ba_normal_equations']}, K5 {c['ba_chi2']}" for name, c in counts.items()) +
+        f"; joint GBA cameras {cams} for {int(system.map.kf_valid.sum())} keyframes")
+    for name in ("_sim3_pipeline", "search_by_sim3", "project_loop_matches",
+                 "_fuse_into_keyframe"):
+        if counts[name]["hamming_matrix"] <= 0:
+            raise AssertionError(f"{name} launched no K2 on the loop path")
+    g = counts["run_joint_global_ba"]
+    if g["ba_normal_equations"] <= 0 or g["ba_chi2"] <= 0:
+        raise AssertionError("the joint GBA launched no K4 or no K5")
+    n_valid = int(system.map.kf_valid.sum())
+    if not cams or any(c != _next_pow2(n_valid) for c in cams):
+        raise AssertionError(f"joint GBA cameras {cams}, not _next_pow2({n_valid})")
+    # Timing (pass 2) and the repeat.
+    p1, p2 = system.poses_wc(), second["system"].poses_wc()
+    e1 = [(a, b, S.tobytes()) for a, b, S in lc.loop_edges]
+    e2 = [(a, b, S.tobytes()) for a, b, S in second["system"].loop_closer.loop_edges]
+    if not np.array_equal(p1, p2) or e1 != e2 or first["states"] != second["states"]:
+        raise AssertionError(f"the two loop passes differ: max |dT| {np.abs(p1 - p2).max()}, "
+                             f"edges equal {e1 == e2}")
+    phase("determinism", f"loop closing: the two passes are bit-identical (trajectory, loop "
+          f"edges and their S_CL, states; {n_kf} keyframes)")
+    det = second["detect_ms"]
+    phase("loop", f"{card}: detection (a process_keyframe that queried the database and "
+          f"verified no candidate): "
+          f"{statistics.mean(det):.2f} ms per keyframe (median {statistics.median(det):.2f}, "
+          f"{len(det)} keyframes)")
+    for v in second["verify"]:
+        phase("loop", f"{card}: verified candidate {v['kf'][0]} for keyframe {v['kf'][1]} "
+              f"({'accepted' if v['accepted'] else 'rejected'}): wall {v['wall_ms']:.1f} ms "
+              f"(profiled), device {v['device_ms']:.2f} ms in {v['device_ops']} device "
+              f"operations, {v['syncs']} host syncs (counted reads), launches K2 "
+              f"{v['launches']['hamming_matrix']} K3 {v['launches']['projection_best2']} K4 "
+              f"{v['launches']['ba_normal_equations']} K5 {v['launches']['ba_chi2']}")
+    for c in second["correct"]:
+        phase("loop", f"{card}: correction of edge {c['kf']}: wall {c['wall_ms']:.1f} ms "
+              f"(profiled, sync debug on), device {c['device_ms']:.2f} ms in {c['device_ops']} "
+              f"device operations, {c['counted_syncs']} counted host reads and "
+              f"{sum(c['syncs'].values())} synchronizing calls, launches K2 "
+              f"{c['launches']['hamming_matrix']} K4 {c['launches']['ba_normal_equations']} K5 "
+              f"{c['launches']['ba_chi2']}; peak device memory {c['peak_total_mb']:.1f} MiB "
+              f"({c['peak_mb']:.1f} MiB above the map)")
+        mapping_stage_lines(c["prof"], card, prefix=STAGE_PREFIX, what="loop correction stage",
+                            syncs=c["syncs"])
+    return launches
+
 
 def main() -> int:
-    import numpy as np
     import torch
 
     t_start = time.perf_counter()
@@ -1658,6 +2239,22 @@ def main() -> int:
     phase("device", f"{card} | torch {torch.__version__} | CUDA {torch.version.cuda} | {kind} | "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, max SM clock "
           f"{CLOCK_HZ / 1e6:.0f} MHz")
+
+    # The loop sequences of phases 12 and 14 render (numpy, ~1 s a frame)
+    # in worker processes while phases 2-11 use the card.
+    renders = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(card, kind, t_start, {
+            name: renders.submit(render_loop_sequence, name) for name in ("reloc", "loop")})
+    finally:
+        renders.shutdown(cancel_futures=True)
+
+
+def run_phases(card, kind, t_start, sequences) -> int:
+    """Phases 2-14 and the result lines; ``sequences`` holds the futures of
+    the loop sequences."""
+    import numpy as np
+    import torch
 
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.ops import fast, hamming
@@ -1736,7 +2333,10 @@ def main() -> int:
     k2_err = 0.0
     k2_ms = k2_plain_ms = None
     k2_shape = (4096, 1024)
-    for na, nb in [(1024, 1024), k2_shape, (1000, 777), (1, 1)]:
+    # 2048 x 1024 and 2048 x 2048: loop closing's neighbourhood projection
+    # and SearchAndFuse (2048 candidate points against a keyframe's
+    # features at the bench and KITTI widths).
+    for na, nb in [(1024, 1024), k2_shape, (1000, 777), (1, 1), (2048, 1024), (2048, 2048)]:
         a, b = rand_desc(na, gen).cuda(), rand_desc(nb, gen).cuda()
         got = hamming.hamming_matrix(a, b)
         want = hamming._hamming_plain(a, b)
@@ -1971,8 +2571,11 @@ def main() -> int:
     # 11-13. the keyframe database at ORBvoc's scale, the kidnap, and
     # localization-only mode ----------------------------------------------------
     bow_check(card)
-    reloc_launches = reloc_check(settings, card)
+    reloc_launches = reloc_check(settings, card, sequences["reloc"])
     loc_launches = localization_check(settings, seq, card)
+
+    # 14. loop closing: the loop sequence through the defaults -----------------
+    loop_launches = loop_check(card, sequences["loop"])
 
     # The camera count of the main path's local-BA window (its last keyframe).
     from orbslam2_tpu_torch.models.local_mapping import _bucket
@@ -1985,9 +2588,9 @@ def main() -> int:
     # on the 8 levels of a 640x480 frame (one launch), K3 at its local-map
     # search (4096 x 1024); "stereo_launches" are the stereo run's;
     # "device_us" is the device time per launch at the row's shape (the
-    # profiler) and "bound_share" the bound over it; "reloc_launches" and
-    # "localization_launches" are the first kidnap pass's and the
-    # localization run's.
+    # profiler) and "bound_share" the bound over it; "reloc_launches",
+    # "localization_launches" and "loop_launches" are the first kidnap
+    # pass's, the localization run's and the first loop pass's.
     k1_ms, k1_plain_ms, k1_bnd, k1_us = k1["640x480"]
     k3_ms, k3_plain_ms, k3_bound, k3_us = k3_times[(4096, 1024)]
     ba_main = ba_times[(c_main, 1024)]
@@ -2028,6 +2631,7 @@ def main() -> int:
         row["stereo_launches"] = stereo_launches[row["name"]]
         row["reloc_launches"] = reloc_launches[row["name"]]
         row["localization_launches"] = loc_launches[row["name"]]
+        row["loop_launches"] = loop_launches[row["name"]]
         row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
         row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])

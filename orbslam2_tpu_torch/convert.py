@@ -17,6 +17,7 @@ import torch
 from . import config
 from .models.frame import Frame
 from .models.kf_database import KeyframeDatabase
+from .models.loop_closing import LoopCloser
 from .models.map_state import MapState
 from .models.track_fused import TrackCtx
 from .ops.bow import Vocabulary, vocabulary_from_arrays
@@ -101,4 +102,22 @@ def database_from_numpy(db, device) -> KeyframeDatabase:
         setattr(out, name, tensor_from_numpy(getattr(db, name), device))
     if db.db_nodes is not None:
         out.db_nodes = tensor_from_numpy(db.db_nodes, device)
+    return out
+
+
+def loop_closer_from_numpy(lc, settings: config.Settings, database: KeyframeDatabase,
+                           device) -> LoopCloser:
+    """A reference ``LoopCloser`` -> the port's on ``device``, over
+    ``database``: its options, loop edges (S_CL as float32), consistent
+    groups (in their order), last loop keyframe and metrics carried across.
+    Its RANSAC key (the position of the reference's draws) comes back as
+    ``reference_key``, a uint32 array, for a caller that replays them."""
+    out = LoopCloser(settings, database, fix_scale=bool(lc.fix_scale),
+                     enable_gba=bool(lc.enable_gba), gba_mode=lc.gba_mode, device=device)
+    out.loop_edges = [(int(a), int(b), np.array(S, np.float32)) for a, b, S in lc.loop_edges]
+    out.candidate_streak = {tuple(int(k) for k in g): int(n)
+                            for g, n in lc.candidate_streak.items()}
+    out.last_loop_kf = int(lc.last_loop_kf)
+    out.metrics = {k: (list(v) if isinstance(v, list) else v) for k, v in lc.metrics.items()}
+    out.reference_key = np.asarray(lc.key, np.uint32)
     return out

@@ -213,26 +213,48 @@ def scatter_add(size: int, index: torch.Tensor, src) -> torch.Tensor:
     return out.index_add(0, flat, src)[:size]
 
 
-def segment_sum(size: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``zeros(size).at[index].add(src, mode="drop")`` along dim 0 for a
-    float ``src`` (one row per entry of the 1-d ``index``), summed in a
-    fixed order with no atomics: a float ``index_add`` runs through atomics
-    on the card and its sums change from run to run.  A stable sort of the
-    targets keeps the entries of each target in their order; each entry is
-    written to its own slot of a zero (size + 1, width, ...) buffer (unique
-    targets, so any write order gives the same buffer), which is summed
-    over its slots.  Sizing the buffer by the largest segment costs one
-    host read per call: the callers run at keyframe rate."""
-    flat = index.long()
+class SegmentPlan(NamedTuple):
+    """Where each entry of a segment sum goes: built once by
+    ``segment_plan`` (one host read), applied by ``segment_sum`` to any
+    number of ``src`` arrays over the same index."""
+    size: int
+    seg: torch.Tensor    # (n,) sorted targets, ``size`` for dropped entries
+    order: torch.Tensor  # (n,) the stable sort's permutation
+    pos: torch.Tensor    # (n,) each entry's slot within its segment
+    width: int           # the largest segment
+
+
+def segment_plan(size: int, index: torch.Tensor) -> SegmentPlan:
+    """The plan of ``segment_sum(size, index, ...)``: a stable sort of the
+    targets keeps the entries of each target in their order.  Sizing the
+    buffer by the largest segment costs one host read."""
+    flat = index.reshape(-1).long()
     flat = torch.where((flat >= 0) & (flat < size), flat, size)
     seg, order = torch.sort(flat, stable=True)
     first = torch.searchsorted(seg, torch.arange(size + 1, device=seg.device))
     pos = torch.arange(seg.shape[0], device=seg.device) - first[seg]
     pos = torch.where(seg < size, pos, 0)  # dropped entries share one slot of the sentinel row
-    width = int(pos.max()) + 1
-    buf = torch.zeros((size + 1, width) + src.shape[1:], dtype=src.dtype, device=src.device)
+    width = int(pos.max()) + 1 if seg.numel() else 1
+    return SegmentPlan(size, seg, order, pos, width)
+
+
+def segment_sum(size: int, index: torch.Tensor, src: torch.Tensor,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """``zeros(size).at[index].add(src, mode="drop")`` along dim 0 for a
+    float ``src`` (one row per entry of the 1-d ``index``), summed in a
+    fixed order with no atomics: a float ``index_add`` runs through atomics
+    on the card and its sums change from run to run.  Each entry is written
+    to its own slot of a zero (size + 1, width, ...) buffer (unique
+    targets, so any write order gives the same buffer), which is summed
+    over its slots.  Without ``plan`` (``segment_plan(size, index)``) the
+    call makes its own, with one host read: callers that sum over the same
+    index many times pass the plan."""
+    if plan is None:
+        plan = segment_plan(size, index)
+    seg, pos = plan.seg, plan.pos
+    buf = torch.zeros((size + 1, plan.width) + src.shape[1:], dtype=src.dtype, device=src.device)
     buf[seg, pos] = torch.where((seg < size).view((-1,) + (1,) * (src.dim() - 1)),
-                                src[order], 0)
+                                src[plan.order], 0)
     return buf[:size].sum(1)
 
 
@@ -247,6 +269,41 @@ def _valid_obs(m: MapState):
     ok = (pts >= 0) & m.kf_kp_valid & m.kf_valid[:, None] & (pts < m.pt_capacity)
     ok = ok & m.pt_valid[torch.where(ok, pts, 0).long()]
     return ok, pts
+
+
+def observation_matrix(m: MapState) -> torch.Tensor:
+    """B (P, K) float32: B[p, k] = 1 iff point p is bound to a valid
+    keypoint of valid keyframe k.  Built with an integer ``amax`` scatter
+    (the reference adds floats and clamps to 1), so no float atomics.
+    O(P*K) memory: loop-rate consumers only."""
+    K, N = m.kf_point.shape
+    P = m.pt_capacity
+    ok, pts = _valid_obs(m)
+    kf_ids = torch.arange(K, device=pts.device)[:, None]
+    flat = torch.where(ok, pts.long() * K + kf_ids, P * K)
+    return (scatter_max(P * K, flat, 1) > 0).view(P, K).to(torch.float32)
+
+
+def covisibility(m: MapState, chunk: int = 16384) -> torch.Tensor:
+    """(K, K) int32 covisibility weights (shared-point counts, diagonal
+    zeroed): W = sum over point chunks of B_c^T B_c, B_c (chunk, K) built
+    from the forward index.  Whole numbers below 2^24 in float32, so the
+    products are exact in any order (TF32 stays off)."""
+    K, N = m.kf_point.shape
+    P = m.pt_capacity
+    CH = min(chunk, P)
+    ok, pts = _valid_obs(m)
+    kf_ids = torch.arange(K, device=pts.device)[:, None].expand(K, N)
+    pts_flat = torch.where(ok, pts.long(), P)
+    W = torch.zeros((K, K), dtype=torch.float32, device=pts.device)
+    for start in range(0, P, CH):
+        local = pts_flat - start
+        in_ch = (local >= 0) & (local < CH)
+        flat = torch.where(in_ch, local * K + kf_ids, CH * K)
+        B = (scatter_max(CH * K, flat, 1) > 0).view(CH, K).to(torch.float32)
+        W = W + B.T @ B
+    W = W * (1.0 - torch.eye(K, dtype=torch.float32, device=W.device))
+    return W.to(torch.int32)
 
 
 def points_seen_by(m: MapState, kf_mask: torch.Tensor) -> torch.Tensor:

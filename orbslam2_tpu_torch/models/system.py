@@ -1,8 +1,8 @@
 """System facade — the public API.
 
 Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
-stereo and RGB-D tracking with synchronous local mapping and
-relocalization: ``track_stereo``, ``track_rgbd``, the localization-only
+stereo and RGB-D tracking with synchronous local mapping, relocalization
+and loop closing: ``track_stereo``, ``track_rgbd``, the localization-only
 mode switches, the metrics snapshot and the three trajectory savers
 (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
 SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
@@ -20,6 +20,7 @@ from ..config import Settings
 from ..ops.bow import Vocabulary, train_vocabulary_arrays, vocabulary_from_arrays
 from .kf_database import KeyframeDatabase
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .tracking import Tracker
 
 
@@ -49,13 +50,14 @@ def _not_ported(what: str, item: int):
 
 
 class SlamSystem:
-    """``SlamSystem(settings, "rgbd", enable_loop_closing=False)`` then
-    ``track_rgbd`` per frame, or ``SlamSystem(settings, "stereo",
-    enable_loop_closing=False)`` then ``track_stereo``; ``enable_mapping``
-    (default True) runs local mapping after each keyframe.  Every system
-    builds a keyframe database on ``vocabulary`` (by default the built-in
-    1000-word one, ``_default_vocabulary``), which relocalizes LOST
-    frames, as the reference does.
+    """``SlamSystem(settings, "rgbd")`` then ``track_rgbd`` per frame, or
+    ``SlamSystem(settings, "stereo")`` then ``track_stereo``;
+    ``enable_mapping`` (default True) runs local mapping after each
+    keyframe and ``enable_loop_closing`` (default True) the loop closer
+    after it, with the scale fixed (stereo and RGB-D observe it).  Every
+    system builds a keyframe database on ``vocabulary`` (by default the
+    built-in 1000-word one, ``_default_vocabulary``), which relocalizes
+    LOST frames and proposes loop candidates, as the reference does.
 
     The signature and defaults are the reference's; every option this port
     lacks raises.  ``device`` is where tracking and mapping run: the card
@@ -80,8 +82,6 @@ class SlamSystem:
             raise _not_ported("monocular tracking", 13)
         if sensor not in (Sensor.STEREO, Sensor.RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
-        if enable_loop_closing:
-            raise _not_ported("loop closing (enable_loop_closing=True)", 15)
         if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
             raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
                             f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
@@ -100,8 +100,14 @@ class SlamSystem:
         self.vocabulary = vocabulary if vocabulary is not None else _default_vocabulary()
         self.database = KeyframeDatabase(self.vocabulary, settings.tpu.max_keyframes,
                                          device=self.device)
+        self.loop_closer = (
+            LoopCloser(settings, self.database, fix_scale=(sensor != Sensor.MONOCULAR),
+                       device=self.device)
+            if enable_loop_closing else None
+        )
         self.tracker = Tracker(settings, local_mapper=self.local_mapper,
-                               database=self.database, device=self.device)
+                               database=self.database, loop_closer=self.loop_closer,
+                               device=self.device)
         self.localization_only = False
         self.timestamps = []
 
@@ -144,7 +150,7 @@ class SlamSystem:
         m = dict(self.tracker.metrics)
         m["n_keyframes"] = int(self.map.kf_valid.sum())
         m["n_points"] = int(self.map.pt_valid.sum())
-        m["n_loop_closures"] = 0
+        m["n_loop_closures"] = len(self.loop_closer.loop_edges) if self.loop_closer else 0
         return m
 
     def poses_wc(self) -> np.ndarray:

@@ -22,8 +22,9 @@ every later frame goes through ``track_fused._fused_track``; a
 ``LocalMapper`` given to the tracker maps each new keyframe synchronously,
 and a ``KeyframeDatabase`` takes every keyframe and serves the
 relocalization of LOST frames (and of visual-odometry frames in
-localization-only mode).  Loop closing and the chunked/pipelined trackers
-are not ported yet.
+localization-only mode); a ``LoopCloser`` given to it runs after local
+mapping on each keyframe.  The chunked/pipelined trackers are not ported
+yet.
 
 Repeated scatter targets are resolved as the reference's CPU run resolves
 them (the highest source row wins), through ``map_state.scatter_last``.
@@ -484,19 +485,19 @@ class Tracker:
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
                  loop_closer=None, device="cuda"):
-        if loop_closer is not None:
-            raise NotImplementedError(
-                "Tracker(loop_closer=...) is not ported yet (ROADMAP Queue 1 item 15)")
         from .kf_database import KeyframeDatabase
         from .local_mapping import LocalMapper
+        from .loop_closing import LoopCloser
 
         for name, value, cls in (("local_mapper", local_mapper, LocalMapper),
-                                 ("database", database, KeyframeDatabase)):
+                                 ("database", database, KeyframeDatabase),
+                                 ("loop_closer", loop_closer, LoopCloser)):
             if value is not None and not isinstance(value, cls):
                 raise TypeError(f"Tracker({name}=...) takes this package's {cls.__name__}, "
                                 f"not {type(value).__name__}")
         self.local_mapper = local_mapper
         self.database = database
+        self.loop_closer = loop_closer
         self.settings = settings
         self.device = torch.device(device)
         self.cam = settings.camera_model()
@@ -750,11 +751,12 @@ class Tracker:
     def _create_keyframe(self, frame: Frame, T, bindings):
         """Insert the frame as a keyframe, spawning close-depth points for
         its unbound keypoints (Tracking.cc:≈1060), add it to the keyframe
-        database, then run the local
-        mapper on it synchronously.  Mapping may cull points whose slots
-        are reused later, so the held bindings are scrubbed against the
-        pool; trajectory entries of culled keyframes are re-anchored and
-        the pool compacted when it nears capacity."""
+        database, then run the local mapper and the loop closer on it
+        synchronously, in that order.  Mapping and the loop correction's
+        fuse may retire points whose slots are reused later, so the held
+        bindings are scrubbed against the pool; with a local mapper,
+        trajectory entries of culled keyframes are re-anchored; the pool
+        is compacted when it nears capacity."""
         m = self.map
         pos_w, ok = unproject_frame_depth(frame, T, self.cam)
         ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
@@ -768,16 +770,23 @@ class Tracker:
         self.last_bindings = bindings
         if self.database is not None:
             self.database.add_keyframe(self.ref_kf, frame.desc, frame.valid)
-        if self.local_mapper is None:
+        if self.local_mapper is None and self.loop_closer is None:
             return
-        self.map = self.local_mapper.process_keyframe(self.map, self.ref_kf)
+        if self.local_mapper is not None:
+            self.map = self.local_mapper.process_keyframe(self.map, self.ref_kf)
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            syncs0 = lc.host_syncs
+            self.map = lc.process_keyframe(self.map, self.ref_kf)
+            self.metrics["host_syncs"] += lc.host_syncs - syncs0
         self.last_bindings = torch.where(
             self.map.pt_valid[torch.clamp(bindings, min=0).long()] & (bindings >= 0),
             bindings, NO_POINT,
         )
         pool = self._host(torch.cat([self.map.kf_valid.to(torch.int32), self.map.n_kf.view(1)]))
         kf_valid = np.array(pool[:-1], dtype=bool)
-        self._reanchor_culled_refs(kf_valid)
+        if self.local_mapper is not None:
+            self._reanchor_culled_refs(kf_valid)
         self._maybe_compact(pool[-1])
 
     # -- keyframe-pool maintenance -------------------------------------------
@@ -838,6 +847,8 @@ class Tracker:
         ]
         if self.database is not None:
             self.database.remap(kf_map)
+        if self.loop_closer is not None:
+            self.loop_closer.remap(kf_map)
 
     # -- bookkeeping -------------------------------------------------------
 

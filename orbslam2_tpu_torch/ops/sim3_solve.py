@@ -1,9 +1,9 @@
-"""Closed-form absolute orientation (Horn 1987).
+"""Closed-form absolute orientation (Horn 1987) and the Sim(3) RANSAC.
 
-Port of ``horn_sim3`` from ``orbslam2_tpu/ops/sim3_solve.py`` (the solver
-inside ``Sim3Solver``, src/Sim3Solver.cc).  P3P relocalization calls it to
-align each minimal triangle; the Sim(3) RANSAC of loop closing comes with
-loop closing.  Batched over leading dimensions.
+Port of ``orbslam2_tpu/ops/sim3_solve.py`` (``Sim3Solver``,
+src/Sim3Solver.cc).  P3P relocalization calls ``horn_sim3`` to align each
+minimal triangle; loop closing calls ``sim3_ransac``, every hypothesis one
+row of a batch.  Batched over leading dimensions.
 
 The quaternion is the eigenvector of a symmetric 4x4 matrix's largest
 eigenvalue.  The reference takes it from ``eigh``; here Jacobi
@@ -18,9 +18,11 @@ error, as the reference's ``eigh`` does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..utils.camera import CameraModel
 
 
 # The six off-diagonal pairs in three rounds of two disjoint pairs (the
@@ -102,3 +104,58 @@ def horn_sim3(
         s = (q1 * rot_q2).sum((-2, -1)) / torch.clamp((rot_q2 * rot_q2).sum((-2, -1)), min=1e-12)
     t = c1 - s[..., None] * (R @ c2[..., None])[..., 0]
     return R, t, s
+
+
+class Sim3Result(NamedTuple):
+    R12: torch.Tensor      # (3, 3)
+    t12: torch.Tensor      # (3,)
+    s12: torch.Tensor      # 0-d
+    inliers: torch.Tensor  # (M,) bool
+    n_inliers: torch.Tensor  # 0-d int
+    ok: torch.Tensor       # 0-d bool
+
+
+def sim3_ransac(
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    valid: torch.Tensor,
+    max_err1: torch.Tensor,
+    max_err2: torch.Tensor,
+    cam: CameraModel,
+    samples: Optional[torch.Tensor] = None,
+    iters: int = 128,
+    fix_scale: bool = False,
+    min_inliers: int = 20,
+    generator: Optional[torch.Generator] = None,
+) -> Sim3Result:
+    """RANSAC Horn alignment of matched points p1/p2 (M, 3), in camera-1
+    and camera-2 frames; ``max_err*`` (M,) are squared-pixel thresholds
+    (9.21 / 7.78 x sigma2 of the octave, the reference's values).
+
+    ``samples`` (iters, 3) are the minimal samples' indices; without them
+    they are drawn uniformly over the valid pairs from ``generator``
+    (``ops/pnp.draw_samples``).  Each hypothesis projects each cloud into
+    the other camera; the one with the most inliers wins (the first on
+    ties, as ``jnp.argmax``)."""
+    if samples is None:
+        from .pnp import draw_samples
+
+        samples = draw_samples(valid, iters, 3, generator)
+    Rs, ts, ss = horn_sim3(p1[samples], p2[samples], fix_scale)  # (I, ...)
+
+    def project(p):
+        z = torch.clamp(p[..., 2], min=1e-6)
+        return torch.stack([cam.fx * p[..., 0] / z + cam.cx, cam.fy * p[..., 1] / z + cam.cy], -1)
+
+    uv1_obs = project(p1)
+    uv2_obs = project(p2)
+    p2_in_1 = ss[:, None, None] * (p2[None] @ Rs.transpose(-1, -2)) + ts[:, None, :]
+    sinv = 1.0 / torch.clamp(ss, min=1e-9)
+    p1_in_2 = sinv[:, None, None] * ((p1[None] - ts[:, None, :]) @ Rs)
+    e1 = ((project(p2_in_1) - uv1_obs) ** 2).sum(-1)
+    e2 = ((project(p1_in_2) - uv2_obs) ** 2).sum(-1)
+    inls = valid & (e1 < max_err1) & (e2 < max_err2)
+    n_in = inls.sum(-1)
+    best = torch.argmax(n_in)
+    return Sim3Result(R12=Rs[best], t12=ts[best], s12=ss[best], inliers=inls[best],
+                      n_inliers=n_in[best], ok=n_in[best] >= min_inliers)

@@ -1,14 +1,19 @@
-"""SE(3) operations on torch tensors — the part of
-``orbslam2_tpu/solvers/lie.py`` that tracking, local mapping and
-relocalization call (the Sim(3) family comes with loop closing).
+"""SE(3) and Sim(3) operations on torch tensors — port of
+``orbslam2_tpu/solvers/lie.py``.
 
 SE3 is a (..., 4, 4) homogeneous matrix; tangent vectors are
 ``[rho(3), phi(3)]`` (translation first), as in the reference package.
+Sim3 is packed as a 4x4 with the scaled rotation sR in the upper-left
+block (the g2o::Sim3 convention); its tangent is ``[rho(3), phi(3),
+sigma]`` with scale ``s = exp(sigma)``.  The branches for small angles and
+small sigma are ``torch.where`` on both sides, so forward-mode derivatives
+(``torch.func.jvp``) pass through every function here.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 _EPS = 1e-8
 
@@ -165,3 +170,105 @@ def orthonormalize_se3(T: torch.Tensor, iters: int = 3) -> torch.Tensor:
     for _ in range(iters):
         X = 0.5 * (X @ (3.0 * eye - X.transpose(-1, -2) @ X))
     return rt_to_mat(X, T[..., :3, 3])
+
+
+def jacfwd_batched(f, args, argnum: int):
+    """Value and Jacobian of ``f(*args)`` in ``args[argnum]`` (..., n) by
+    forward-mode differentiation (the reference's ``jax.jacfwd``): one
+    pass of dual tensors with the n basis directions as a new leading
+    dimension, so ``f`` must broadcast over leading dimensions.  Returns
+    (value (..., m), J (..., m, n)).  (``torch.func.jacfwd`` runs the same
+    passes under ``vmap``, where a ``torch.where`` tangent came out in
+    float64.)"""
+    x = args[argnum]
+    n = x.shape[-1]
+    basis = torch.eye(n, dtype=x.dtype, device=x.device)
+    basis = basis.view((n,) + (1,) * (x.dim() - 1) + (n,)).expand((n,) + x.shape).contiguous()
+    with fwAD.dual_level():
+        a = list(args)
+        a[argnum] = fwAD.make_dual(x.expand((n,) + x.shape).contiguous(), basis)
+        value, tangent = fwAD.unpack_dual(f(*a))
+    return value[0], tangent.movedim(0, -1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): loop closing and the essential graph
+# ---------------------------------------------------------------------------
+
+
+def det3x3(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of batched (..., 3, 3) matrices by cofactors."""
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def sim3_to_mat(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Pack Sim3 as 4x4 with the sR block."""
+    return rt_to_mat(s[..., None, None] * R, t)
+
+
+def sim3_from_mat(S: torch.Tensor):
+    """Packed Sim3 -> (R, t, s), s the cube root of |det(sR)|."""
+    sR = S[..., :3, :3]
+    s = torch.pow(det3x3(sR).abs() + _EPS, 1.0 / 3.0)
+    return sR / s[..., None, None], S[..., :3, 3], s
+
+
+def sim3_inverse_mat(S: torch.Tensor) -> torch.Tensor:
+    R, t, s = sim3_from_mat(S)
+    Rinv = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    tinv = -sinv[..., None] * (Rinv @ t[..., None])[..., 0]
+    return sim3_to_mat(Rinv, tinv, sinv)
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply packed Sim3 (sR | t) to points (..., 3)."""
+    return (p[..., None, :] * S[..., :3, :3]).sum(-1) + S[..., :3, 3]
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) exp: (..., 7) [rho, phi, sigma] -> packed 4x4 (sR | t), with
+    the closed-form W matrix of Strasdat's thesis (g2o's Sim3)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    t = (_sim3_W(phi, sigma) @ rho[..., None])[..., 0]
+    return sim3_to_mat(so3_exp(phi), t, torch.exp(sigma))
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Packed Sim3 -> (..., 7) [rho, phi, sigma], rho solving W rho = t by
+    the closed-form 3x3 inverse (no solver status read back)."""
+    R, t, s = sim3_from_mat(S)
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = (inv3x3(_sim3_W(phi, sigma)) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    # Scalars enter torch.where as tensors: under torch.func's vmap a bare
+    # Python float there is promoted to float64.
+    one = torch.ones_like(sigma)
+    s = torch.exp(sigma)
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    Phi = hat(phi)
+    eps_sigma = sigma.abs() < 1e-5
+    small_theta = theta2 < 1e-8
+    sig = torch.where(eps_sigma, one, sigma)
+    s_cos = s * torch.cos(theta)
+    s_sin = s * torch.sin(theta)
+    denom = sig * sig + theta2
+    A = torch.where(eps_sigma, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sig)
+    b_gen = (sig * s_sin + (1.0 - s_cos) * theta) / (torch.where(small_theta, one, theta) * denom)
+    c_gen = (A - ((s_cos - 1.0) * sig + s_sin * theta) / denom) / torch.where(
+        small_theta, one, theta2)
+    _, B0, C0 = _sinc_terms(theta2)
+    b = torch.where(eps_sigma, B0, b_gen)
+    c = torch.where(eps_sigma, C0, c_gen)
+    b_t0 = (sig * s + 1.0 - s) / (sig * sig)
+    b = torch.where(small_theta & ~eps_sigma, b_t0, b)
+    c = torch.where(small_theta, torch.where(eps_sigma, one / 6.0, c), c)
+    return (A[..., None, None] * _eye3_like(Phi) + b[..., None, None] * Phi
+            + c[..., None, None] * (Phi @ Phi))

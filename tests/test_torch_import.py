@@ -17,6 +17,7 @@ from orbslam2_tpu_torch.config import CameraSettings, OrbSettings, Settings, Tpu
 from orbslam2_tpu_torch.models import map_state
 from orbslam2_tpu_torch.models.kf_database import KeyframeDatabase
 from orbslam2_tpu_torch.models.local_mapping import LocalMapper
+from orbslam2_tpu_torch.models.loop_closing import LoopCloser
 from orbslam2_tpu_torch.models.system import SlamSystem, _default_vocabulary
 from orbslam2_tpu_torch.models.tracking import Tracker
 from orbslam2_tpu_torch.ops import fast, hamming
@@ -50,12 +51,16 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.utils.vocab",
     "orbslam2_tpu_torch.solvers.ba_kernels",
     "orbslam2_tpu_torch.solvers.local_ba",
+    "orbslam2_tpu_torch.solvers.sim3_opt",
+    "orbslam2_tpu_torch.solvers.pose_graph",
+    "orbslam2_tpu_torch.solvers.global_ba",
     "orbslam2_tpu_torch.models.frame",
     "orbslam2_tpu_torch.models.map_state",
     "orbslam2_tpu_torch.models.tracking",
     "orbslam2_tpu_torch.models.track_fused",
     "orbslam2_tpu_torch.models.local_mapping",
     "orbslam2_tpu_torch.models.kf_database",
+    "orbslam2_tpu_torch.models.loop_closing",
     "orbslam2_tpu_torch.models.system",
 ]
 
@@ -93,7 +98,7 @@ def test_tf32_is_off():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(sensor="mono", enable_mapping=False, enable_loop_closing=False), "item 13"),
     (dict(sensor="rgbd", enable_loop_closing=False, mapping_device="cpu"), "item 10"),
-    (dict(sensor="rgbd", enable_mapping=False), "item 15"),
+    (dict(sensor="rgbd", enable_mapping=False, async_mapping=True), "item 10"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, chunk=8), "item 11"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, pipeline=True),
      "item 11"),
@@ -108,17 +113,36 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_tracker_refuses_mapper_database_loop_closer():
-    # A mapper or database that is not this package's is refused; this
-    # package's keyframe database is accepted; loop closing is not ported
-    # yet.
+    # A mapper, database or loop closer that is not this package's is
+    # refused; this package's are accepted.
     with pytest.raises(TypeError, match="LocalMapper"):
         Tracker(_settings(), local_mapper=object(), device="cpu")
     with pytest.raises(TypeError, match="KeyframeDatabase"):
         Tracker(_settings(), database=object(), device="cpu")
     db = KeyframeDatabase(_default_vocabulary(), 16, device="cpu")
     assert Tracker(_settings(), database=db, device="cpu").database is db
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="LoopCloser"):
         Tracker(_settings(), loop_closer=object(), device="cpu")
+    lc = LoopCloser(_settings(), db, fix_scale=True, device="cpu")
+    assert Tracker(_settings(), database=db, loop_closer=lc, device="cpu").loop_closer is lc
+    with pytest.raises(TypeError, match="KeyframeDatabase"):
+        LoopCloser(_settings(), object(), fix_scale=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        LoopCloser(_settings(), db, fix_scale=True, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "stereo"])
+def test_default_system_closes_loops(sensor):
+    # The reference's defaults: mapping and loop closing on, scale fixed.
+    s = SlamSystem(_settings(), sensor, device="cpu")
+    assert isinstance(s.loop_closer, LoopCloser)
+    assert s.tracker.loop_closer is s.loop_closer
+    assert s.loop_closer.db is s.database
+    assert s.loop_closer.fix_scale
+    assert isinstance(s.tracker.local_mapper, LocalMapper)
+    assert s.metrics()["n_loop_closures"] == 0
+    assert SlamSystem(_settings(), sensor, enable_loop_closing=False,
+                      device="cpu").loop_closer is None
 
 
 def test_vocabulary_is_accepted():
@@ -240,3 +264,25 @@ def test_build_is_keyed_by_the_sources():
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     for name in kernels._SOURCES:
         assert (kernels._CSRC / name).is_file()
+
+
+def test_loop_closer_runs_after_each_keyframe_without_a_mapper():
+    # The tracker hands every keyframe to the loop closer after local
+    # mapping, and with no local mapper too (the reference's order).
+    from orbslam2_tpu_torch.utils import synthetic
+
+    s = SlamSystem(_settings(), "rgbd", enable_mapping=False, device="cpu")
+    calls = []
+    inner = s.loop_closer.process_keyframe
+
+    def recorded(m, kf_id, abort=None):
+        calls.append(kf_id)
+        return inner(m, kf_id, abort)
+
+    s.loop_closer.process_keyframe = recorded
+    seq = synthetic.make_sequence(_settings().camera_model(), n_frames=12, n_points=400,
+                                  with_depth=True, seed=11)
+    for i in range(12):
+        s.track_rgbd(seq.images[i], seq.depths[i], seq.timestamps[i])
+    created = s.tracker.metrics["keyframes_created"]
+    assert created >= 1 and calls == list(range(1, created + 1))

@@ -2,12 +2,15 @@
 replay the reference's RANSAC draws in the port.
 
 ``carry_tracker(ref_system, port_system)`` copies the JAX ``SlamSystem``'s
-map, keyframe database and tracker state (pose, velocity, last frame and
-bindings, reference keyframe, trajectory, counters) into the port's
-``SlamSystem`` on the CPU.  ``JaxSampler(key)`` stands in for the port
-tracker's ``_ransac_samples``: it splits ``key`` once per RANSAC call, as
-the reference's ``_relocalize`` does, and draws with
+map, keyframe database, loop closer (streaks, edges, last loop keyframe,
+metrics) and tracker state (pose, velocity, last frame and bindings,
+reference keyframe, trajectory, counters) into the port's ``SlamSystem``
+on the CPU.  ``JaxSampler(key)`` stands in for the port tracker's and loop
+closer's ``_ransac_samples``: it splits ``key`` once per RANSAC call, as
+the reference's ``_relocalize`` and ``_sim3_pipeline`` do, and draws with
 ``jax.random.choice`` and the reference's weights.
+``record_sim3_gates(loop_closer, log)`` logs every verified loop
+candidate's gate scalars and outcome, in either package.
 """
 
 import functools
@@ -64,4 +67,27 @@ def carry_tracker(ref_system, port_system, device="cpu"):
         port.metrics[k] = ref.metrics[k]
     port_system.timestamps = list(ref_system.timestamps)
     port._ransac_samples = JaxSampler(ref.init_key)
+    if ref_system.loop_closer is not None:
+        lc = convert.loop_closer_from_numpy(ref_system.loop_closer, port_system.settings,
+                                            port.database, device)
+        lc._ransac_samples = JaxSampler(jnp.asarray(lc.reference_key))
+        port_system.loop_closer = port.loop_closer = lc
     return port_system
+
+
+def record_sim3_gates(loop_closer, log):
+    """Wrap ``loop_closer._apply_sim3_gates`` to append each verified
+    candidate's keyframes, gate scalars, pass and outcome to ``log``."""
+    inner = loop_closer._apply_sim3_gates
+
+    def gates(m, kf_c, kf_l, res, **kw):
+        out = inner(m, kf_c, kf_l, res, **kw)
+        n_matches, n_distinct, _, _, ransac_ok, n_inliers, n_proj = res[:7]
+        log.append({"kf_c": int(kf_c), "kf_l": int(kf_l), "n_matches": int(n_matches),
+                    "n_distinct": int(n_distinct), "ransac_ok": bool(ransac_ok),
+                    "n_inliers": int(n_inliers), "n_proj": int(n_proj),
+                    "retry": bool(kw), "accepted": out is not None,
+                    "S_CL": None if out is None else np.asarray(out).tolist()})
+        return out
+
+    loop_closer._apply_sim3_gates = gates

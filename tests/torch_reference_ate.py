@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --stereo   # stereo
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc    # kidnap
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --loop [--small] [--frames N]
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -37,8 +38,22 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   reference and whether the port follows the reference through the loss
   and the relocalization from the same state (``chip_smoke.py``'s
   ``reloc`` limits cite it).  About 25 minutes and 3 GB on the CPU.
+* ``--loop``: the loop closing fixture of ``tests/test_slam_e2e.py::
+  TestLoopClosing`` (``make_loop_sequence(n_frames=84, circle_radius=1.5,
+  with_depth=True, seed=5)``, a vocabulary (k=10, L=4) trained on every
+  6th frame's descriptors, local BA and fuse off) through the reference's
+  ``SlamSystem`` with its defaults, loop closing on and then off, at the
+  bench settings (640x480, 1000 features) with the fixture's baseline (bf
+  = 0.5 fx; ``--small``: the test's 320x240 settings, bf 160).  ``--frames N`` lengthens the circle (``extra_turns``
+  grows with it so the frames keep their spacing).  Prints, for each run,
+  the ATE, the keyframe count, the loop edges, the per-frame states, and
+  for loop closing every Sim3 verification: current and loop keyframe,
+  the gate scalars (matches, distinct, RANSAC ok, inliers, projections),
+  the retry pass and the outcome.  ``chip_smoke.py``'s ``loop`` limits
+  come from it.
 """
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -171,8 +186,71 @@ def reloc_carried_main():
     print(json.dumps(out))
 
 
+# chip_smoke.py's loop sequence (LOOP_SEQ there) and TestLoopClosing's.
+LOOP_SEQ = dict(n_frames=84, circle_radius=1.5, with_depth=True, seed=5)
+
+
+def loop_setup(small: bool, n_frames: int):
+    from orbslam2_tpu.ops.bow import train_vocabulary
+    from orbslam2_tpu.ops.extractor import OrbExtractor
+    from test_slam_e2e import small_settings
+
+    if small:
+        s = small_settings(bf=160.0)
+    else:
+        # The bench settings with the fixture's baseline (bf / fx = 0.5, as
+        # small_settings(bf=160) at fx 320): the depth below which points
+        # are spawned stays the fixture's 20 m.
+        s = smoke_settings()
+        s = dataclasses.replace(s, camera=dataclasses.replace(s.camera, bf=0.5 * s.camera.fx))
+    kw = dict(LOOP_SEQ, n_frames=n_frames)
+    if n_frames != LOOP_SEQ["n_frames"]:
+        kw["extra_turns"] = 1.25 * n_frames / LOOP_SEQ["n_frames"]
+    seq = synthetic.make_loop_sequence(s.camera_model(), **kw)
+    ex = OrbExtractor(s.orb, s.tpu)
+    descs = np.concatenate([np.asarray(f.desc)[np.asarray(f.valid)]
+                            for f in (ex(seq.images[i]) for i in range(0, n_frames, 6))])
+    return s, seq, train_vocabulary(descs, k=10, levels=4, seed=0)
+
+
+def loop_main(small: bool, n_frames: int):
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+    from torch_carried_tracker import record_sim3_gates
+
+    s, seq, vocab = loop_setup(small, n_frames)
+    out = {"small": small, "n_frames": n_frames}
+    for lc_on in (True, False):
+        system = SlamSystem(s, Sensor.RGBD, vocabulary=vocab, enable_loop_closing=lc_on)
+        system.local_mapper.enable_ba = False
+        system.local_mapper.enable_fuse = False
+        verified = []
+        if lc_on:
+            record_sim3_gates(system.loop_closer, verified)
+        states = []
+        for i in range(n_frames):
+            system.track_rgbd(seq.images[i], seq.depths[i], seq.timestamps[i])
+            states.append(int(system.tracking_state()))
+        run = {
+            "ate_m": float(synthetic.ate_rmse(system.poses_wc(), seq.poses_wc, with_scale=False)),
+            "n_kf": int(np.asarray(system.map.n_kf)),
+            "keyframes_created": system.tracker.metrics["keyframes_created"],
+            "states": states,
+        }
+        if lc_on:
+            run["loop_edges"] = [(int(a), int(b)) for a, b, _ in system.loop_closer.loop_edges]
+            run["verified"] = verified
+            run["metrics"] = {k: v for k, v in system.loop_closer.metrics.items()
+                              if isinstance(v, int)}
+        out["on" if lc_on else "off"] = run
+    print(json.dumps(out))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--loop" in sys.argv[1:]:
+        args = sys.argv[1:]
+        n = int(args[args.index("--frames") + 1]) if "--frames" in args else LOOP_SEQ["n_frames"]
+        return loop_main("--small" in args, n)
     if "--reloc-carried" in sys.argv[1:]:
         return reloc_carried_main()
     if "--reloc" in sys.argv[1:]:
