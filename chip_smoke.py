@@ -112,18 +112,38 @@ on failure (the script then exits non-zero and prints no result):
               and per correction stage wall, device, launches and host
               syncs; peak device memory), bit-identical to the first, and
               copied before its first correction into the loop-off run
+ 15. drivers  (a) ``pipeline=True`` on phase 8's 24 frames, held against
+              the same run on the CPU through the frame after the first
+              keyframe; (b) ``chunk=8`` with synchronous mapping and loop
+              closing on bench.py's own 96 frames (``BENCH_SEQ``), twice:
+              every frame OK, bit-identical, ATE within DRIVERS_LIMIT_ATE_M
+              (the reference's chunk-8 run + 3 mm), every kernel launched;
+              (c) bench.py's own ``SlamSystem(chunk=8, async_mapping=True,
+              enable_loop_closing=True)``: a warm-up half pass, then a timed
+              pass on a fresh system: every frame OK, at least 3 keyframes
+              and 3 mapping jobs (bench.py's assertion), ATE within (b)'s +
+              1 cm, no job in flight and an empty keyframe queue after
+              ``shutdown()``, K2/K4/K5 launched from the mapping worker
+              thread and K1/K3 from the tracking thread; the first three
+              adoptions rerun on the CPU from the card's inputs
+              (``AdoptWitness``: integer and boolean fields equal, floats
+              within 1e-5); frames/s of (b) and (c) under bench.py's metric
+              name, per-call wall median and max, host syncs and launches
+              per frame, launches by thread
 
 Phases 7-10 and 12-13 build their systems with loop closing off, as
 before it was ported; phase 14 runs it.  Phases 7-10 also report the keyframe database's entries: every system
 builds one, and each keyframe takes a BoW transform (plain torch, no
 hand-written kernel).  Each path's launch counts are set to 0 just before
-it runs and read just after.  The last lines are the kernel table as one JSON object, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+it runs and read just after.  The last lines are the kernel table as one JSON object (each row with
+its launches in every path, ``driver_launches`` those of phase 15), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import multiprocessing
 import os
@@ -339,11 +359,12 @@ def bench_settings():
     )
 
 
-def make_system(settings, device, mapping, sensor="rgbd"):
+def make_system(settings, device, mapping, sensor="rgbd", **kw):
+    """A system with loop closing off; ``kw`` goes to ``SlamSystem``."""
     from orbslam2_tpu_torch.models.system import SlamSystem
 
     return SlamSystem(settings, sensor, enable_mapping=mapping, enable_loop_closing=False,
-                      device=device)
+                      device=device, **kw)
 
 
 def frame_inputs(seq, frames, device):
@@ -395,10 +416,11 @@ def drive(system, seq, device, frames, on_frame=None, keep_poses=0):
     return states, time.perf_counter() - t0, poses, k3
 
 
-def run_slice(settings, seq, device, n_frames, mapping=False, keep_poses=0, sensor="rgbd"):
+def run_slice(settings, seq, device, n_frames, mapping=False, keep_poses=0, sensor="rgbd",
+              **kw):
     """Track ``n_frames`` frames; returns (system, states, seconds, poses,
     K3 launches of each frame)."""
-    system = make_system(settings, device, mapping, sensor)
+    system = make_system(settings, device, mapping, sensor, **kw)
     return (system, *drive(system, seq, device, range(n_frames), keep_poses=keep_poses))
 
 
@@ -421,14 +443,15 @@ def rot_angle(R) -> float:
     return float(np.arctan2(np.linalg.norm(R - R.T) / np.sqrt(2.0), np.trace(R) - 1.0))
 
 
-def compare_with_cpu(settings, seq, poses_cw, states, mapping, sensor="rgbd"):
-    """The first len(poses_cw) frames of the same run on the CPU: equal
-    states, tracked poses within POSE_TOL_M / POSE_TOL_RAD."""
+def compare_with_cpu(settings, seq, poses_cw, states, mapping, sensor="rgbd", **kw):
+    """The first len(poses_cw) frames of the same run (``kw`` to
+    ``SlamSystem``) on the CPU: equal states, tracked poses within
+    POSE_TOL_M / POSE_TOL_RAD."""
     import numpy as np
 
     n = len(poses_cw)
     cpu_sys, cpu_states, _, cpu_poses, _ = run_slice(settings, seq, "cpu", n, mapping=mapping,
-                                                     keep_poses=n, sensor=sensor)
+                                                     keep_poses=n, sensor=sensor, **kw)
     if cpu_states != states[:n]:
         raise AssertionError(f"CPU states {cpu_states} != GPU states {states[:n]}")
     a = np.linalg.inv(np.stack(cpu_poses))
@@ -948,7 +971,7 @@ def compare_mapping_passes(mapper, passes):
     moved = 0.0
     for m_in, kf_id, n_now, out in passes:
         m_cpu = MapState(*(t.cpu() for t in m_in))
-        ref = mapper.process_keyframe(m_cpu, kf_id, n_now)
+        ref = mapper.process_keyframe(m_cpu, kf_id, n_now=n_now)
         for f in MapState._fields:
             a, b = getattr(out, f).cpu(), getattr(ref, f)
             if f in MAP_TOL:
@@ -1061,7 +1084,7 @@ def run_summary(system, seq):
     from orbslam2_tpu_torch.utils import synthetic
 
     poses = system.poses_wc()
-    if not np.isfinite(poses).all() or poses.shape != (N_FRAMES, 4, 4):
+    if not np.isfinite(poses).all() or poses.shape != (len(seq.images), 4, 4):
         raise AssertionError(f"bad trajectory: shape {poses.shape}")
     m = system.metrics()
     return (poses, synthetic.ate_rmse(poses, seq.poses_wc),
@@ -1353,26 +1376,32 @@ def bow_check(card):
               f"each); candidates equal to the CPU's: {ids}")
 
 
-def render_loop_sequence(name: str):
+def render_sequence(name: str):
     """Render the kidnap's ("reloc": ``RELOC_SEQ`` at the bench settings) or
     the loop phase's ("loop": ``LOOP_SEQ`` at ``loop_settings``)
-    ``make_loop_sequence``; returns (sequence, seconds).  ``main`` runs it
-    in a worker process while the earlier phases use the card."""
+    ``make_loop_sequence``, or bench.py's ("bench": ``BENCH_SEQ`` at the
+    bench settings) ``make_sequence``; returns (sequence, seconds).
+    ``main`` runs it in a worker process while the earlier phases use the
+    card."""
     from orbslam2_tpu_torch.utils import synthetic
 
     t0 = time.perf_counter()
-    settings, kw = {"reloc": (bench_settings, RELOC_SEQ), "loop": (loop_settings, LOOP_SEQ)}[name]
-    seq = synthetic.make_loop_sequence(settings().camera_model(), **kw)
+    if name == "bench":
+        seq = synthetic.make_sequence(bench_settings().camera_model(), **BENCH_SEQ)
+    else:
+        settings, kw = {"reloc": (bench_settings, RELOC_SEQ),
+                        "loop": (loop_settings, LOOP_SEQ)}[name]
+        seq = synthetic.make_loop_sequence(settings().camera_model(), **kw)
     return seq, time.perf_counter() - t0
 
 
 def rendered(future, name: str, settings):
-    """The sequence of a ``render_loop_sequence`` future, its render time
+    """The sequence of a ``render_sequence`` future, its render time
     printed."""
     t0 = time.perf_counter()
     seq, secs = future.result()
     cam = settings.camera_model()
-    phase(name, f"{len(seq.images)} loop frames of {cam.width}x{cam.height} rendered in "
+    phase(name, f"{len(seq.images)} frames of {cam.width}x{cam.height} rendered in "
           f"{secs:.2f} s in a worker process beside the earlier phases (waited "
           f"{time.perf_counter() - t0:.2f} s for it)")
     return seq
@@ -2225,6 +2254,303 @@ def loop_check(card, seq_future):
     return launches
 
 
+# -- the drivers: pipelined, chunked, and bench.py's own system -----------------
+
+# bench.py's sequence (bench.py:55-67) and chunk (bench.py:42), at the bench
+# settings.  The JAX reference's SlamSystem(settings, "rgbd", chunk=8,
+# enable_loop_closing=True) with synchronous mapping tracks all 96 frames,
+# creates 21 keyframes, closes no loop and reaches ATE DRIVERS_REF_ATE_M
+# (`JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench --chunk
+# 8`, run on the CPU); the
+# chunked phase may lie 3 mm above it, as the mapping phase may, and
+# bench.py's constructor (async mapping, whose adoption points depend on
+# wall-clock time) 1 cm above the chunked run.
+BENCH_SEQ = dict(n_frames=96, n_points=1500, with_depth=True, seed=0, radius=0.35, forward=2.0)
+BENCH_CHUNK = 8
+DRIVERS_REF_ATE_M = 0.015167599662350487
+DRIVERS_LIMIT_ATE_M = DRIVERS_REF_ATE_M + 0.003
+ASYNC_ATE_MARGIN_M = 0.01
+# AdoptWitness: the first adoptions of the async pass, each rerun on the CPU.
+ADOPT_WITNESSED = 3
+ADOPT_FLOAT_TOL = 1e-5
+FPS_METRIC = "slam_pipeline_fps_640x480_1000feat_kf_on"
+KERNELS = ("fast_score_nms", "hamming_matrix", "projection_best2", "ba_normal_equations",
+           "ba_chi2")
+
+
+class AdoptWitness:
+    """Keeps the card's (mapped, snapshot, tracked, job_kf) and result of
+    the first ADOPT_WITNESSED adoptions (``async_pipeline.adopt_mapped_state``,
+    which the tracker looks up at each adoption) by reference: the port's
+    map updates make new tensors, so nothing is copied during the timed
+    pass.  ``check`` reruns each on the CPU from those inputs: integer and
+    boolean fields equal, float fields within ADOPT_FLOAT_TOL."""
+
+    def __init__(self):
+        from orbslam2_tpu_torch.models import async_pipeline as ap
+
+        self.module, self.inner, self.cases = ap, ap.adopt_mapped_state, []
+
+    def __enter__(self):
+        def adopt(mapped, snapshot, tracked, job_kf=None):
+            out = self.inner(mapped, snapshot, tracked, job_kf)
+            if len(self.cases) < ADOPT_WITNESSED:
+                self.cases.append((mapped, snapshot, tracked, job_kf, out))
+            return out
+
+        self.module.adopt_mapped_state = adopt
+        return self
+
+    def __exit__(self, *exc):
+        self.module.adopt_mapped_state = self.inner
+
+    def check(self):
+        import torch
+
+        if len(self.cases) < ADOPT_WITNESSED:
+            raise AssertionError(f"AdoptWitness: {len(self.cases)} adoptions, not "
+                                 f"{ADOPT_WITNESSED}")
+        ap = self.module
+        for k, (mapped, snapshot, tracked, job_kf, out) in enumerate(self.cases):
+            cpu = self.inner(*(ap.map_to(m, "cpu") for m in (mapped, snapshot, tracked)), job_kf)
+            worst = 0.0
+            for name, a, b in zip(cpu._fields, out, cpu):
+                a = a.cpu()
+                if a.is_floating_point():
+                    worst = max(worst, float((a - b).abs().max()))
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"AdoptWitness: adoption {k} (job keyframe {job_kf}): "
+                                         f"{name} differs from the CPU in "
+                                         f"{int((a != b).sum())} entries")
+            if worst > ADOPT_FLOAT_TOL:
+                raise AssertionError(f"AdoptWitness: adoption {k}: floats {worst} from the CPU")
+            moved = int((tracked.n_kf - snapshot.n_kf).item())
+            phase("drivers", f"AdoptWitness: adoption {k} (job keyframe {job_kf}, {moved} "
+                  f"keyframes the tracker made during the job) equal to its CPU rerun: "
+                  f"integer and boolean fields equal, floats within {worst:.3e}")
+
+
+class LayerClock:
+    """Host wall time of the async pipeline's layer in a pass: each
+    ``AsyncMappingPipeline.submit`` (the snapshot's clone and the worker's
+    start) and each adoption of a result (``Tracker._adopt``).  Wraps the
+    two classes while it is entered; the jobs time themselves
+    (``AsyncMappingPipeline.job_seconds``)."""
+
+    def __enter__(self):
+        from orbslam2_tpu_torch.models import async_pipeline as ap
+        from orbslam2_tpu_torch.models import tracking
+
+        self.submit, self.adopt = [], []
+        self.saved = [(ap.AsyncMappingPipeline, "submit", ap.AsyncMappingPipeline.submit),
+                      (tracking.Tracker, "_adopt", tracking.Tracker._adopt)]
+        (_, _, submit), (_, _, adopt) = self.saved
+
+        def timed_submit(pipeline, m, kf_id):
+            t = time.perf_counter()
+            submit(pipeline, m, kf_id)
+            self.submit.append(time.perf_counter() - t)
+
+        def timed_adopt(tracker, result):
+            t = time.perf_counter()
+            adopt(tracker, result)
+            if result is not None:
+                self.adopt.append(time.perf_counter() - t)
+
+        ap.AsyncMappingPipeline.submit = timed_submit
+        tracking.Tracker._adopt = timed_adopt
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+    def line(self, card, pipeline, by_thread):
+        from orbslam2_tpu_torch.models.async_pipeline import WORKER_THREAD
+
+        jobs = pipeline.job_seconds
+        worker = sum(by_thread.get(WORKER_THREAD, {}).values())
+        adopt_ms = statistics.median(self.adopt) * 1e3
+        phase("layer", f"{card}: async_pipeline in (c): submit "
+              f"{statistics.median(self.submit) * 1e3:.2f} ms (median of {len(self.submit)}, "
+              f"max {max(self.submit) * 1e3:.2f}), adoption {adopt_ms:.2f} ms (median of "
+              f"{len(self.adopt)}, max {max(self.adopt) * 1e3:.2f}), a job in the "
+              f"worker {statistics.median(jobs) * 1e3:.1f} ms wall (median of {len(jobs)}, max "
+              f"{max(jobs) * 1e3:.1f}; its device work may still run), K1-K5 launches from the "
+              f"worker {worker / len(jobs):.1f} per job")
+
+
+def drivers_pass(settings, seq, count_syncs=False, **kw):
+    """``seq`` through ``SlamSystem(settings, "rgbd", enable_loop_closing=True,
+    device="cuda", **kw)`` at bench.py's 30 Hz timestamps, then
+    ``shutdown()``; launch counts from 0.  Returns a dict: the system, its
+    ``run_summary``, the seconds (shutdown included), each call's seconds,
+    the launches, the launches by thread, the tracked frames lost, and with
+    ``count_syncs`` (one thread only: warnings are caught per process) the
+    calls that synchronized, by torch's sync debug mode."""
+    import torch
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.models.system import SlamSystem
+
+    inputs = frame_inputs(seq, range(len(seq.images)), "cuda")
+    system = SlamSystem(settings, "rgbd", enable_loop_closing=True, device="cuda", **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    calls = []
+    recording = warnings.catch_warnings(record=True) if count_syncs else contextlib.nullcontext()
+    with recording as caught:
+        if count_syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for i, (a, b) in enumerate(inputs):
+                t = time.perf_counter()
+                system.track_rgbd(a, b, i / 30.0)
+                calls.append(time.perf_counter() - t)
+            system.shutdown()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launches, by_thread = dict(kernels.LAUNCHES), kernels.thread_launch_counts()
+    lost = [fid for fid, _, _, bad in system.tracker.trajectory if bad]
+    syncs = sum("synchroniz" in str(w.message) for w in caught) if count_syncs else None
+    return dict(system=system, summary=run_summary(system, seq), secs=secs, calls=calls,
+                launches=launches, by_thread=by_thread, lost=lost, syncs=syncs)
+
+
+def drivers_line(card, label, run):
+    n = len(run["calls"])
+    tr = run["system"].tracker
+    lc = run["system"].loop_closer
+    k = sum(run["launches"].values())
+    phase("drivers", f"{card}: {label}: {n / run['secs']:.2f} frames/s ({n} frames, "
+          f"{run['secs']:.2f} s with shutdown), per call wall median "
+          f"{statistics.median(run['calls']) * 1e3:.1f} ms, max {max(run['calls']) * 1e3:.1f} "
+          f"ms; host syncs {tr.metrics['host_syncs'] / n:.2f}/frame (tracker's count) + "
+          f"{lc.host_syncs / n:.2f}/frame (loop closer's); K1-K5 launches {k / n:.2f}/frame; "
+          f"by thread {run['by_thread']}")
+
+
+def drivers_check(card, settings, seq24, seq_future):
+    """Phase 15: (a) the pipelined tracker on the mapping phase's 24 frames
+    against the CPU; (b) the chunked tracker (chunk 8, synchronous mapping,
+    loop closing) on bench.py's 96 frames, twice, bit for bit, within
+    DRIVERS_LIMIT_ATE_M; (c) bench.py's own SlamSystem (chunk 8, async
+    mapping, loop closing): a warm-up half pass, then a timed pass with
+    AdoptWitness.  Returns each kernel's launches in (a), (b) and (c), and
+    in (c) those of the mapping worker."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.models.async_pipeline import WORKER_THREAD
+
+    # (a) pipelined --------------------------------------------------------------
+    system = make_system(settings, "cuda", mapping=True, pipeline=True)
+    kc_log = []
+    kernels.reset_launch_counts()
+    states, _, poses_cw, _ = drive(
+        system, seq24, "cuda", range(N_FRAMES),
+        lambda i, before: None if before else kc_log.append(
+            system.tracker.metrics["keyframes_created"]),
+        keep_poses=N_FRAMES)
+    pipe_launches = dict(kernels.LAUNCHES)
+    pipe = run_summary(system, seq24)
+    if pipe_launches["fast_score_nms"] != N_FRAMES:
+        raise AssertionError(f"pipelined: K1 launched {pipe_launches['fast_score_nms']} times")
+    # Through the frame after the one that resolved the first keyframe.
+    n_cmp = min(next(i for i, n in enumerate(kc_log) if n) + 2, N_FRAMES)
+    dt, dr, cpu_kc = compare_with_cpu(settings, seq24, poses_cw[:n_cmp], states, mapping=True,
+                                      pipeline=True)
+    if cpu_kc < 1:
+        raise AssertionError(f"pipelined: the CPU run of frames 0-{n_cmp - 1} made no keyframe")
+    phase("drivers", f"(a) pipelined, mapping on, {N_FRAMES} frames: ATE {pipe[1]:.6f} m, "
+          f"{pipe[2]} keyframes created, states {states}, launches {pipe_launches}; frames "
+          f"0-{n_cmp - 1} CPU vs GPU ({cpu_kc} keyframe): states equal, max |dt| {dt:.3e} m, "
+          f"max rotation {dr:.3e} rad")
+
+    seq = rendered(seq_future, "drivers", settings)
+    n = len(seq.images)
+
+    # (b) chunked, synchronous mapping, twice -------------------------------------
+    chunked = [drivers_pass(settings, seq, count_syncs=k == 0, chunk=BENCH_CHUNK)
+               for k in range(2)]
+    b = chunked[0]
+    check_repeat(f"chunk {BENCH_CHUNK}, synchronous mapping", b["summary"],
+                 chunked[1]["summary"])
+    _, b_ate, b_kc, b_kf, b_pts = b["summary"]
+    phase("drivers", f"(b) chunk {BENCH_CHUNK}, synchronous mapping, loop closing, {n} frames: "
+          f"ATE {b_ate:.6f} m (reference {DRIVERS_REF_ATE_M:.6f} m, limit "
+          f"{DRIVERS_LIMIT_ATE_M:.6f} m), {b_kc} keyframes created, {b_kf} valid, {b_pts} "
+          f"points, lost {b['lost']}, loop edges {b['system'].metrics()['n_loop_closures']}, "
+          f"launches {b['launches']}")
+    if b["lost"] or b["system"].tracker.metrics["frames_lost"]:
+        raise AssertionError(f"chunked: frames lost {b['lost']}")
+    if not b_ate <= DRIVERS_LIMIT_ATE_M:
+        raise AssertionError(f"chunked: ATE {b_ate} m > {DRIVERS_LIMIT_ATE_M} m")
+    # Once per frame, and once more for each frame a chunk's relocalization
+    # walk builds again or requeues.
+    if b["launches"]["fast_score_nms"] < n:
+        raise AssertionError(f"chunked: K1 launched {b['launches']['fast_score_nms']} times "
+                             f"for {n} frames")
+    for name in KERNELS:
+        if not b["launches"][name]:
+            raise AssertionError(f"chunked: {name} was not launched")
+    n_chunks = b["system"].tracker.metrics["chunks"]
+    phase("drivers", f"(b) run 1: {b['syncs'] / n:.2f} synchronizing calls per frame "
+          f"(torch's sync debug mode, mapping and loop closing included), "
+          f"{b['syncs'] / n_chunks:.1f} per chunk of {BENCH_CHUNK} ({n_chunks} chunks); "
+          f"tracker's count {b['system'].tracker.metrics['host_syncs'] / n_chunks:.1f} per chunk")
+    drivers_line(card, f"(b) chunk {BENCH_CHUNK}, synchronous, run 2", chunked[1])
+
+    # (c) bench.py's constructor: warm-up half pass, then a timed pass --------------
+    bench_kw = dict(chunk=BENCH_CHUNK, async_mapping=True)
+    half = type(seq)(**{f: (getattr(seq, f)[: n // 2] if f != "world" else seq.world)
+                        for f in seq._fields})
+    warm = drivers_pass(settings, half, **bench_kw)
+    phase("drivers", f"(c) warm-up: {n // 2} frames, {warm['summary'][2]} keyframes, "
+          f"{warm['system'].mapping_pipeline.jobs_run} jobs, lost {warm['lost']}")
+    with AdoptWitness() as witness, LayerClock() as clock:
+        c = drivers_pass(settings, seq, **bench_kw)
+    system = c["system"]
+    mp, tr = system.mapping_pipeline, system.tracker
+    _, c_ate, c_kc, c_kf, c_pts = c["summary"]
+    phase("drivers", f"(c) bench.py's SlamSystem(chunk={BENCH_CHUNK}, async_mapping=True, "
+          f"enable_loop_closing=True), {n} frames: ATE {c_ate:.6f} m (limit "
+          f"{b_ate + ASYNC_ATE_MARGIN_M:.6f} m, (b) + {ASYNC_ATE_MARGIN_M} m), {c_kc} keyframes "
+          f"created, {mp.jobs_run} jobs, {c_kf} valid, {c_pts} points, lost {c['lost']}, loop "
+          f"edges {system.metrics()['n_loop_closures']}, launches {c['launches']}")
+    if c["lost"] or tr.metrics["frames_lost"]:
+        raise AssertionError(f"async: frames lost {c['lost']}")
+    if c_kc < 3 or mp.jobs_run < 3:
+        raise AssertionError(f"bench.py's assertion: keyframes {c_kc}, jobs {mp.jobs_run}")
+    if not c_ate <= b_ate + ASYNC_ATE_MARGIN_M:
+        raise AssertionError(f"async: ATE {c_ate} m > {b_ate + ASYNC_ATE_MARGIN_M} m")
+    if mp._thread is not None or not mp.accept_keyframes() or tr._kf_queue:
+        raise AssertionError(f"after shutdown: job in flight {mp._thread is not None}, queue "
+                             f"{tr._kf_queue}")
+    worker = c["by_thread"].get(WORKER_THREAD, dict.fromkeys(KERNELS, 0))
+    main_thread = c["by_thread"].get("MainThread", dict.fromkeys(KERNELS, 0))
+    for name in KERNELS:
+        if not c["launches"][name]:
+            raise AssertionError(f"async: {name} was not launched")
+    for name in ("hamming_matrix", "ba_normal_equations", "ba_chi2"):
+        if not worker[name]:
+            raise AssertionError(f"async: the mapping worker launched no {name}")
+    for name in ("fast_score_nms", "projection_best2"):
+        if not main_thread[name]:
+            raise AssertionError(f"async: the tracking thread launched no {name}")
+    witness.check()
+    drivers_line(card, "(c) bench.py's SlamSystem", c)
+    clock.line(card, mp, c["by_thread"])
+    phase("drivers", f"{card}: {FPS_METRIC}: (b) chunk {BENCH_CHUNK} synchronous "
+          f"{n / chunked[1]['secs']:.2f} frames/s, (c) bench.py's SlamSystem (async mapping) "
+          f"{n / c['secs']:.2f} frames/s (one pass of {n} each, not a claim)")
+    return {name: {"pipelined": pipe_launches[name], "chunked": b["launches"][name],
+                   "async": c["launches"][name], "async_worker": worker[name]}
+            for name in KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -2240,12 +2566,14 @@ def main() -> int:
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, max SM clock "
           f"{CLOCK_HZ / 1e6:.0f} MHz")
 
-    # The loop sequences of phases 12 and 14 render (numpy, ~1 s a frame)
-    # in worker processes while phases 2-11 use the card.
+    # The sequences of phases 12, 14 and 15 render (numpy, ~1 s a frame)
+    # in two worker processes while phases 2-11 use the card; phase 15's
+    # starts when the first is done, so that no more than two compete with
+    # the timed phases for the host's cores.
     renders = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
     try:
         return run_phases(card, kind, t_start, {
-            name: renders.submit(render_loop_sequence, name) for name in ("reloc", "loop")})
+            name: renders.submit(render_sequence, name) for name in ("reloc", "loop", "bench")})
     finally:
         renders.shutdown(cancel_futures=True)
 
@@ -2382,6 +2710,7 @@ def run_phases(card, kind, t_start, sequences) -> int:
                   f"plain {t[3]:.4f} ms, bound {b5[0] * 1e3:.3f} us ({b5[1]}), share "
                   f"{b5[0] * 1e3 / t[5]:.3f}")
 
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
     # 7. the slice with mapping off -------------------------------------------
     kernels.reset_launch_counts()
     system, states, _, first_poses, k3_off = run_slice(settings, seq, "cuda", N_FRAMES,
@@ -2429,8 +2758,8 @@ def run_phases(card, kind, t_start, sequences) -> int:
     passes = []  # (input map, kf_id, n_now, output map) of each mapping pass
     process_keyframe = msystem.local_mapper.process_keyframe
 
-    def recorded_process(m, kf_id, n_now=None):
-        out = process_keyframe(m, kf_id, n_now)
+    def recorded_process(m, kf_id, abort=None, n_now=None):
+        out = process_keyframe(m, kf_id, abort=abort, n_now=n_now)
         passes.append((m, kf_id, n_now, out))
         return out
 
@@ -2529,10 +2858,10 @@ def run_phases(card, kind, t_start, sequences) -> int:
     process = mapper.process_keyframe
     map_s = []
 
-    def timed_process(m, kf_id, n_now=None):
+    def timed_process(m, kf_id, abort=None, n_now=None):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = process(m, kf_id, n_now)
+        out = process(m, kf_id, abort=abort, n_now=n_now)
         torch.cuda.synchronize()
         map_s.append(time.perf_counter() - t)
         return out
@@ -2564,18 +2893,25 @@ def run_phases(card, kind, t_start, sequences) -> int:
                                         f"mapping on, frames {start}-{start + 4}")
     mapping_stage_lines(window, card)
 
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
     # 10. stereo at the KITTI operating point, default algorithms --------------
     stereo_launches, stereo_kf_frames, stereo_run = stereo_check(stereo_settings, stereo_seq)
     stereo_stats = stereo_timing(stereo_settings, stereo_seq, stereo_kf_frames, stereo_run, card)
 
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
     # 11-13. the keyframe database at ORBvoc's scale, the kidnap, and
     # localization-only mode ----------------------------------------------------
     bow_check(card)
     reloc_launches = reloc_check(settings, card, sequences["reloc"])
     loc_launches = localization_check(settings, seq, card)
 
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
     # 14. loop closing: the loop sequence through the defaults -----------------
     loop_launches = loop_check(card, sequences["loop"])
+
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+    # 15. the drivers: pipelined, chunked, bench.py's async system ---------------
+    driver_launches = drivers_check(card, settings, seq, sequences["bench"])
 
     # The camera count of the main path's local-BA window (its last keyframe).
     from orbslam2_tpu_torch.models.local_mapping import _bucket
@@ -2632,6 +2968,7 @@ def run_phases(card, kind, t_start, sequences) -> int:
         row["reloc_launches"] = reloc_launches[row["name"]]
         row["localization_launches"] = loc_launches[row["name"]]
         row["loop_launches"] = loop_launches[row["name"]]
+        row["driver_launches"] = driver_launches[row["name"]]
         row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
         row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])

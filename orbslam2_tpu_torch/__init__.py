@@ -8,10 +8,12 @@ sources under ``csrc/``, built and bound by ``kernels.py``; every wrapper
 launches its kernel for a CUDA tensor and takes its plain PyTorch version
 for a CPU tensor.
 
-Ported so far: RGB-D and stereo tracking with keyframe insertion,
-synchronous local mapping, place recognition with relocalization, and
-localization-only mode (loop closing, mono and the chunked, pipelined and
-async drivers are not ported yet; see ROADMAP.md).
+Ported so far: RGB-D and stereo tracking with keyframe insertion through
+the per-frame, pipelined and chunked drivers; local mapping, in line or
+in a worker thread on map snapshots (async mapping); place recognition
+with relocalization; loop closing; localization-only mode; and the
+System lifecycle (``reset``, ``shutdown``).  Mono, the dataset drivers
+and the multi-device solvers are not ported yet (see ROADMAP.md).
 """
 
 __version__ = "0.1.0"

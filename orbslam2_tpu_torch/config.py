@@ -170,8 +170,7 @@ class TpuSettings:
     kf_urgent_gap: int = 10            # InterruptBA-class urgent adopt when
                                        # the KF gap reaches this (frames)
     kf_urgent_wait_s: float = 0.15     # grace for the urgent adopt of an
-                                       # async mapping job (not ported yet;
-                                       # kept so settings convert 1:1)
+                                       # async mapping job (seconds)
     mesh_shape: tuple = (1,)           # device mesh ("map" axis)
     dtype: str = "float32"
 

@@ -12,7 +12,11 @@ Each wrapper takes CUDA tensors only and raises on anything else; the
 dispatch to the plain PyTorch versions for CPU tensors lives in the
 callers (``ops/fast.py``, ``ops/hamming.py``, ``ops/matcher.py``,
 ``solvers/ba_kernels.py``).
-``LAUNCHES`` counts the launches of each kernel; nothing else changes it.
+``LAUNCHES`` counts the launches of each kernel, and
+``THREAD_LAUNCHES`` the same launches by the name of the thread that made
+them (the async mapping worker launches beside the tracker); nothing else
+changes them.  The build, the load and the counts are guarded by locks, so
+threads that launch at once build the library once and lose no count.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -39,13 +44,32 @@ FAST_MAX_LEVELS = 16
 
 LAUNCHES = {"fast_score_nms": 0, "hamming_matrix": 0, "projection_best2": 0,
             "ba_normal_equations": 0, "ba_chi2": 0}
+THREAD_LAUNCHES: dict = {}  # thread name -> {kernel: launches}
 
 _lib = None
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        THREAD_LAUNCHES.clear()
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``, in the total and under the thread."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        thread = threading.current_thread().name
+        THREAD_LAUNCHES.setdefault(thread, dict.fromkeys(LAUNCHES, 0))[name] += 1
+
+
+def thread_launch_counts() -> dict:
+    """A copy of ``THREAD_LAUNCHES``."""
+    with _count_lock:
+        return {t: dict(c) for t, c in THREAD_LAUNCHES.items()}
 
 
 def _nvcc() -> str:
@@ -96,9 +120,14 @@ def build() -> Path:
 
 
 def load():
-    """Build if needed, then load the library (once per process)."""
+    """Build if needed, then load the library (once per process, whichever
+    threads ask at once)."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         cf = ctypes.c_float
@@ -167,7 +196,7 @@ def fast_score_nms_levels_cuda(levels, min_th: float = 0.0) -> list:
             ints(*(x.shape[0] for x in levels)), ints(*(x.shape[1] for x in levels)), n,
             float(min_th), _stream(levels[0]))
     _raise_on(err, "fast_score_nms")
-    LAUNCHES["fast_score_nms"] += 1
+    _count("fast_score_nms")
     return outs
 
 
@@ -190,7 +219,7 @@ def hamming_matrix_cuda(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Ten
             desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), na, nb, _stream(desc_a)
         )
     _raise_on(err, "hamming_matrix")
-    LAUNCHES["hamming_matrix"] += 1
+    _count("hamming_matrix")
     return out
 
 
@@ -252,7 +281,7 @@ def projection_best2_cuda(proj_uv, rr2, proj_level, proj_desc, proj_valid,
             idx.data_ptr(), best.data_ptr(), second.data_ptr(), _stream(proj_desc),
         )
     _raise_on(err, "projection_best2")
-    LAUNCHES["projection_best2"] += 1
+    _count("projection_best2")
     return idx, best, second
 
 
@@ -322,7 +351,7 @@ def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust:
             _stream(X),
         )
     _raise_on(err, "ba_normal_equations")
-    LAUNCHES["ba_normal_equations"] += 1
+    _count("ba_normal_equations")
     return H, b, pack, chi2
 
 
@@ -340,5 +369,5 @@ def ba_chi2_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics):
             *(float(v) for v in intrinsics), _stream(X),
         )
     _raise_on(err, "ba_chi2")
-    LAUNCHES["ba_chi2"] += 1
+    _count("ba_chi2")
     return chi2, total

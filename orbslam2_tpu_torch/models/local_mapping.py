@@ -1,5 +1,6 @@
-"""Local mapping: per-keyframe map maintenance, run synchronously after each
-keyframe insertion.
+"""Local mapping: per-keyframe map maintenance, run after each keyframe
+insertion, in line or in the async pipeline's worker thread
+(``models/async_pipeline.py``).
 
 Port of ``orbslam2_tpu/models/local_mapping.py`` (the LocalMapping thread,
 src/LocalMapping.cc):
@@ -475,12 +476,22 @@ class LocalMapper:
         pairs_b = torch.stack([targets, kf.expand_as(targets)], 1).reshape(-1)
         return pairs_a, pairs_b, torch.repeat_interleave(target_ok, 2), targets
 
-    def process_keyframe(self, m: ms.MapState, kf_id: int, n_now: int = None) -> ms.MapState:
+    def process_keyframe(self, m: ms.MapState, kf_id: int, abort=None,
+                         n_now: int = None) -> ms.MapState:
         """The mapping sequence for keyframe ``kf_id`` (an int): cull
         points, triangulate, fuse, refresh point statistics, local BA,
         distinctive descriptors of the touched points, cull keyframes.
         Every window is sized from ``n_now`` (default kf_id + 1), the
-        keyframes in use: the small bucket up to 8 keyframes."""
+        keyframes in use: the small bucket up to 8 keyframes.
+
+        ``abort``, a ``threading.Event`` (the InterruptBA analog,
+        LocalMapping.cc mbAbortBA): once it is set, local BA and every
+        stage after it are skipped; the structural stages (culling,
+        triangulation, fuse, point statistics) always complete."""
+
+        def aborted():
+            return abort is not None and abort.is_set()
+
         dev = m.pt_pos.device
         sf, sigma2, inv_sigma2 = self.tables(dev)
         kf = _kf(kf_id, dev)
@@ -502,7 +513,7 @@ class LocalMapper:
                                       pair_valid=pair_valid)
         with record_function(STAGE_PREFIX + "update_point_stats"):
             m = ms.update_point_stats(m, sf)
-        if self.enable_ba:
+        if self.enable_ba and not aborted():
             with record_function(STAGE_PREFIX + "local_bundle_adjustment"):
                 m = self._local_ba(m, kf, n_now)
                 # Outlier unbinding changes the observation sets of points
@@ -511,6 +522,8 @@ class LocalMapper:
                 _, ba_window = topk_stable(
                     row, min(self.ba_n_local + self.ba_n_fixed, row.shape[0]))
                 touched.append(ba_window.to(torch.int32))
+        if aborted():
+            return m
         with record_function(STAGE_PREFIX + "compute_distinctive_descriptors"):
             m = ms.compute_distinctive_descriptors(m, touched_kfs=torch.cat(touched))
         if self.enable_kf_culling:

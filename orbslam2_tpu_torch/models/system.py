@@ -1,9 +1,12 @@
 """System facade — the public API.
 
 Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
-stereo and RGB-D tracking with synchronous local mapping, relocalization
-and loop closing: ``track_stereo``, ``track_rgbd``, the localization-only
-mode switches, the metrics snapshot and the three trajectory savers
+stereo and RGB-D tracking with local mapping, relocalization and loop
+closing: ``track_stereo``, ``track_rgbd``, the per-frame, pipelined and
+chunked tracking drivers, synchronous or asynchronous mapping (a worker
+thread on map snapshots, the reference's LocalMapping and LoopClosing
+threads), the localization-only mode switches, ``reset`` and
+``shutdown``, the metrics snapshot and the three trajectory savers
 (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
 SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, rather than being ignored.
@@ -18,6 +21,7 @@ import torch
 
 from ..config import Settings
 from ..ops.bow import Vocabulary, train_vocabulary_arrays, vocabulary_from_arrays
+from .async_pipeline import AsyncMappingPipeline
 from .kf_database import KeyframeDatabase
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
@@ -59,6 +63,15 @@ class SlamSystem:
     built-in 1000-word one, ``_default_vocabulary``), which relocalizes
     LOST frames and proposes loop candidates, as the reference does.
 
+    ``pipeline`` and ``chunk`` choose the tracker's driver (see
+    ``Tracker``).  ``async_mapping`` runs local mapping and loop closing in
+    a worker thread on map snapshots, adopted at later frame boundaries, so
+    tracking does not wait for them; adoption depends on wall-clock time,
+    so runs that must repeat exactly map synchronously (the default).
+    ``mapping_device`` runs the local mapper there (default: the tracker's
+    device); the snapshot goes there and the result comes back.  The loop
+    closer runs on the tracker's device, beside the keyframe database.
+
     The signature and defaults are the reference's; every option this port
     lacks raises.  ``device`` is where tracking and mapping run: the card
     unless the caller asks for "cpu".
@@ -85,31 +98,43 @@ class SlamSystem:
         if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
             raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
                             f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
-        if chunk or pipeline:
-            raise _not_ported("the chunked and pipelined trackers (chunk, pipeline)", 11)
-        if async_mapping or mapping_device is not None:
-            raise _not_ported("async mapping (async_mapping, mapping_device)", 10)
         if mesh is not None:
             raise _not_ported("multi-device solvers (mesh)", 17)
         self.settings = settings
         self.sensor = sensor
         self.device = torch.device(device)
-        # Synchronous local mapping after each keyframe (the reference's
-        # LocalMapping thread; async mapping is item 10).
         self.local_mapper = LocalMapper(settings, sensor=sensor) if enable_mapping else None
         self.vocabulary = vocabulary if vocabulary is not None else _default_vocabulary()
-        self.database = KeyframeDatabase(self.vocabulary, settings.tpu.max_keyframes,
-                                         device=self.device)
-        self.loop_closer = (
-            LoopCloser(settings, self.database, fix_scale=(sensor != Sensor.MONOCULAR),
-                       device=self.device)
-            if enable_loop_closing else None
-        )
-        self.tracker = Tracker(settings, local_mapper=self.local_mapper,
-                               database=self.database, loop_closer=self.loop_closer,
-                               device=self.device)
+        self.enable_loop_closing = enable_loop_closing
+        self.pipeline = pipeline
+        self.chunk = chunk
+        self.async_mapping = async_mapping
+        self.mapping_device = None if mapping_device is None else torch.device(mapping_device)
+        self._build()
         self.localization_only = False
         self.timestamps = []
+
+    def _build(self):
+        """A fresh keyframe database, loop closer, mapping pipeline and
+        tracker."""
+        self.database = KeyframeDatabase(self.vocabulary, self.settings.tpu.max_keyframes,
+                                         device=self.device)
+        self.loop_closer = (
+            LoopCloser(self.settings, self.database,
+                       fix_scale=(self.sensor != Sensor.MONOCULAR), device=self.device)
+            if self.enable_loop_closing else None
+        )
+        self.mapping_pipeline = self._make_mapping_pipeline()
+        self.tracker = Tracker(self.settings, local_mapper=self.local_mapper,
+                               database=self.database, loop_closer=self.loop_closer,
+                               pipeline=self.pipeline, chunk=self.chunk,
+                               mapping_pipeline=self.mapping_pipeline, device=self.device)
+
+    def _make_mapping_pipeline(self):
+        if not self.async_mapping or self.local_mapper is None:
+            return None
+        return AsyncMappingPipeline(self.local_mapper, self.loop_closer,
+                                    device=self.mapping_device)
 
     # -- per-frame API (System::TrackStereo / TrackRGBD) -----------------
 
@@ -130,11 +155,39 @@ class SlamSystem:
         self.localization_only = True
         self.tracker.local_mapper = None
         self.tracker.localization_only = True
+        self._set_ctx_only_tracking(True)
 
     def deactivate_localization_mode(self):
         self.localization_only = False
         self.tracker.local_mapper = self.local_mapper
         self.tracker.localization_only = False
+        self._set_ctx_only_tracking(False)
+
+    def _set_ctx_only_tracking(self, value: bool):
+        # The chained context of the pipelined and chunked drivers.
+        if self.tracker._next_ctx is not None:
+            self.tracker._next_ctx = self.tracker._next_ctx._replace(only_tracking=value)
+
+    # -- lifecycle (System::Reset, System::Shutdown) ------------------------
+
+    def reset(self):
+        """Drop the map and start over: the mapping job in flight is
+        drained and discarded, and the keyframe database, the loop closer,
+        the mapping pipeline and the tracker are built afresh.  (The
+        reference keeps its loop closer and clears its database, edges and
+        streaks; a fresh one also restarts its RANSAC draws and its last
+        loop keyframe, so that a run after ``reset`` repeats a fresh
+        system's.)"""
+        if self.mapping_pipeline is not None:
+            self.mapping_pipeline.wait()
+        self._build()
+        self.timestamps = []
+
+    def shutdown(self):
+        """Resolve the frames in flight and drain the mapping worker and its
+        keyframe queue (``Tracker.flush``); the worker thread has ended
+        when it returns."""
+        self.tracker.flush()
 
     # -- state inspection --------------------------------------------------
 

@@ -15,13 +15,18 @@ The reference runs the chain as one device program with ``lax.cond``
 branches.  Here each branch is a host ``if`` on a count read back from the
 device; reads are batched so a frame on the motion path makes three (the
 motion-model counts, the local-map inlier count, and the flags the tracker
-reads).  ``TrackOut.host_syncs`` reports the reads made here.
+reads).  ``TrackOut.host_syncs`` reports the reads made here, and
+``TrackOut.next_ctx`` is the context the next frame starts from, which the
+pipelined and chunked drivers chain.  ``make_fused_chunk_tracker`` runs C
+frames with the keyframe decision and insertion inside (the reference's
+``lax.scan``, a host loop here).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..solvers.lie import orthonormalize_se3, se3_inverse
@@ -75,6 +80,7 @@ class TrackOut(NamedTuple):
     T_cr: torch.Tensor       # (4, 4) pose relative to the ref KF (trajectory log)
     flags: torch.Tensor      # (N_FLAGS,) int32
     host_syncs: int          # device-to-host reads made by the chain
+    next_ctx: TrackCtx       # the context the next frame starts from
 
 
 def _fused_track(
@@ -221,7 +227,122 @@ def _fused_track(
         need.to(torch.int32),
         torch.tensor(path, dtype=torch.int32, device=dev),
     ])
+    # The context the next frame starts from (the reference's device-chained
+    # ctx, read by the pipelined and chunked drivers).  ref_kf and
+    # frames_since_kf are overridden by the driver when a keyframe is made.
+    next_ctx = TrackCtx(
+        T_last=T_log,
+        velocity=velocity_new if ok else torch.eye(4, dtype=torch.float32, device=dev),
+        has_velocity=ok,
+        last_xy=frame.xy,
+        last_level=frame.level,
+        last_bindings=bf if ok else ctx.last_bindings,
+        ref_kf=ctx.ref_kf,
+        weak=nf < 50,
+        frames_since_kf=ctx.frames_since_kf + 1,
+        last_depth=frame.depth,
+        last_desc=frame.desc,
+        last_valid=frame.valid,
+        only_tracking=ctx.only_tracking,
+        last_angle=frame.angle,
+    )
     return TrackOut(
         m=m, frame=frame, T_cw=T_out, bindings=bf, velocity=velocity_new,
-        T_cr=T_cr, flags=flags, host_syncs=reads,
+        T_cr=T_cr, flags=flags, host_syncs=reads, next_ctx=next_ctx,
     )
+
+
+class ChunkOut(NamedTuple):
+    """A C-frame chunk's outputs: the per-frame tensors the host resolves
+    (read in one copy), the map and the context after the chunk."""
+
+    m: ms.MapState
+    next_ctx: TrackCtx
+    flags: torch.Tensor      # (C, N_FLAGS) int32
+    T_cw: torch.Tensor       # (C, 4, 4) per-frame pose (valid iff flags ok)
+    T_cr: torch.Tensor       # (C, 4, 4) pose relative to the logged ref KF
+    log_ref: np.ndarray      # (C,) int32 ref-KF id of each trajectory entry
+    kf_id: np.ndarray        # (C,) int32 created keyframe id, -1 if none
+    # Copies of the pool state, read with the chunk's outputs so that pool
+    # maintenance needs no read of its own (the map itself is replaced by
+    # the next chunk).
+    kf_valid: torch.Tensor   # (K,) bool
+    n_kf: torch.Tensor       # int32
+    host_syncs: int          # device-to-host reads made by the chunk
+
+
+def make_fused_chunk_tracker(
+    build_frame,
+    cam: CameraModel,
+    scale_factors: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    th_depth: float,
+    *,
+    local_window: int,
+    kf_max_gap: int,
+    kf_busy_frames: int,
+):
+    """C frames of tracking in one call: the port of the reference's
+    ``make_fused_chunk_tracker`` (a ``lax.scan`` there, a host loop here,
+    strictly serial over frames).  The keyframe decision and insertion
+    happen inside the chunk, so a new keyframe is trackable by the frames
+    after it; triangulation, culling, local BA and loop closing run after
+    the chunk (the reference's queue hand-off to LocalMapping, with a lag
+    of at most C frames).
+
+    Returns ``chunk(*img_stacks, m, ctx, fid0, min_kf_fid) -> ChunkOut``:
+    ``img_stacks[i][j]`` is input i of frame j, ``build_frame(inputs)``
+    makes a frame of them, ``fid0`` is the first frame's id, and frames
+    with an id below ``min_kf_fid`` insert no keyframe (localization-only
+    mode passes 2**30, the post-relocalization suppression its threshold,
+    Tracking.cc:≈990).  A keyframe frame reads the device once more than a
+    tracked one: whether the policy wants a keyframe, with the slot it
+    takes."""
+    from .tracking import add_points, insert_keyframe, unproject_frame_depth
+
+    def chunk(*args):
+        *img_stacks, m, ctx, fid0, min_kf_fid = args
+        reads = 0
+        flags, T_cws, T_crs, log_ref, kf_ids = [], [], [], [], []
+        for j in range(len(img_stacks[0])):
+            fid = fid0 + j
+            frame = build_frame(tuple(s[j] for s in img_stacks))
+            out = _fused_track(
+                m, frame, ctx, cam, scale_factors, inv_sigma2, th_depth,
+                local_window=local_window, kf_max_gap=kf_max_gap,
+                kf_busy_frames=kf_busy_frames,
+            )
+            reads += out.host_syncs + 1
+            need, slot = torch.stack([out.flags[FLAG_NEED_KF], out.m.n_kf.to(torch.int32)]).tolist()
+            m, nctx, T_cr, kid = out.m, out.next_ctx, out.T_cr, -1
+            if need and fid >= min_kf_fid:
+                # Close-depth point spawning (Tracking.cc:≈1060), from the
+                # tracker's end of the free list (see add_points).
+                bindings = out.bindings
+                pos_w, okd = unproject_frame_depth(frame, out.T_cw, cam)
+                okd = okd & (bindings < 0) & (frame.depth < th_depth)
+                m, pids = add_points(m, pos_w, frame.desc, okd, m.n_kf, reverse=True)
+                bindings = torch.where(okd & (pids >= 0), pids, bindings)
+                m, _ = insert_keyframe(m, frame, out.T_cw, fid, bindings, ctx.ref_kf)
+                m = ms.update_point_stats(m, scale_factors)
+                kid = slot
+                # A keyframe event is the only override of the chained ctx;
+                # the reference logs the relative pose after
+                # CreateNewKeyFrame moved mpReferenceKF (Tracking.cc:≈470-490),
+                # so a keyframe frame's is the identity.
+                nctx = nctx._replace(ref_kf=kid, frames_since_kf=0, last_bindings=bindings)
+                T_cr = torch.eye(4, dtype=torch.float32, device=T_cr.device)
+            flags.append(out.flags)
+            T_cws.append(out.T_cw)
+            T_crs.append(T_cr)
+            log_ref.append(kid if kid >= 0 else ctx.ref_kf)
+            kf_ids.append(kid)
+            ctx = nctx
+        return ChunkOut(
+            m=m, next_ctx=ctx, flags=torch.stack(flags), T_cw=torch.stack(T_cws),
+            T_cr=torch.stack(T_crs), log_ref=np.array(log_ref, np.int32),
+            kf_id=np.array(kf_ids, np.int32), kf_valid=m.kf_valid.clone(),
+            n_kf=m.n_kf.clone(), host_syncs=reads,
+        )
+
+    return chunk

@@ -18,13 +18,15 @@ names and fixed shapes:
 
 The host ``Tracker`` runs the state machine.  Initialization builds the
 first keyframe from stereo or sensor depth (StereoInitialization, ≈500);
-every later frame goes through ``track_fused._fused_track``; a
-``LocalMapper`` given to the tracker maps each new keyframe synchronously,
-and a ``KeyframeDatabase`` takes every keyframe and serves the
-relocalization of LOST frames (and of visual-odometry frames in
-localization-only mode); a ``LoopCloser`` given to it runs after local
-mapping on each keyframe.  The chunked/pipelined trackers are not ported
-yet.
+every later frame goes through ``track_fused._fused_track``, one frame at
+a time, pipelined (frame k resolved after frame k+1 is tracked) or in
+chunks of C frames (``track_fused.make_fused_chunk_tracker``).  A
+``LocalMapper`` given to the tracker maps each new keyframe, in line or,
+with an ``AsyncMappingPipeline``, in a worker thread on a map snapshot
+that is adopted at a later frame boundary; a ``KeyframeDatabase`` takes
+every keyframe and serves the relocalization of LOST frames (and of
+visual-odometry frames in localization-only mode); a ``LoopCloser`` given
+to it runs after local mapping on each keyframe.
 
 Repeated scatter targets are resolved as the reference's CPU run resolves
 them (the highest source row wins), through ``map_state.scatter_last``.
@@ -476,6 +478,24 @@ class Tracker:
     model (mVelocity), last frame, reference keyframe, and the relative-pose
     log for trajectory export (mlRelativeFramePoses, Tracking.cc:≈480).
 
+    Three drivers, as the reference's:
+
+      * per frame (default): each frame is tracked and resolved at once;
+      * ``pipeline=True``: frame k+1 is tracked before frame k is resolved,
+        so frame k's keyframe enters the map one frame late (the
+        reference's lag-1 readback, on the context each frame hands the
+        next, ``TrackOut.next_ctx``);
+      * ``chunk=C`` (C > 1): C frames are buffered and tracked in one call
+        of ``track_fused.make_fused_chunk_tracker``, which decides and
+        inserts keyframes itself; the host resolves a chunk (trajectory,
+        keyframe database, mapping, loop closing, relocalization) after
+        it, or after the next one while a mapping job is in flight.
+
+    ``flush()`` resolves whatever is in flight.  With ``mapping_pipeline``
+    (``async_pipeline.AsyncMappingPipeline``) keyframes queue for a worker
+    thread that maps them on snapshots, adopted at later frame boundaries;
+    without it the local mapper and the loop closer run in line.
+
     ``metrics["host_syncs"]`` counts the device-to-host reads tracking
     made (each one waits for the device when the tensors are on a GPU).
     The relocalization's RANSAC samples come from ``generator``, a
@@ -484,14 +504,17 @@ class Tracker:
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
-                 loop_closer=None, device="cuda"):
+                 loop_closer=None, pipeline: bool = False, chunk: int = 0,
+                 mapping_pipeline=None, device="cuda"):
+        from .async_pipeline import AsyncMappingPipeline
         from .kf_database import KeyframeDatabase
         from .local_mapping import LocalMapper
         from .loop_closing import LoopCloser
 
         for name, value, cls in (("local_mapper", local_mapper, LocalMapper),
                                  ("database", database, KeyframeDatabase),
-                                 ("loop_closer", loop_closer, LoopCloser)):
+                                 ("loop_closer", loop_closer, LoopCloser),
+                                 ("mapping_pipeline", mapping_pipeline, AsyncMappingPipeline)):
             if value is not None and not isinstance(value, cls):
                 raise TypeError(f"Tracker({name}=...) takes this package's {cls.__name__}, "
                                 f"not {type(value).__name__}")
@@ -500,9 +523,34 @@ class Tracker:
         self.loop_closer = loop_closer
         self.settings = settings
         self.device = torch.device(device)
+        tpu = settings.tpu
+        # Async mapping: keyframes insert at once and queue here for the
+        # worker (the reference's mlNewKeyFrames, LocalMapping.h:≈110); a
+        # keyframe is deferred only when the queue is full (Tracking.cc:≈1050),
+        # and made anyway once kf_urgent_gap frames passed since the last
+        # one, after a wait of at most kf_urgent_wait_s for the job in flight
+        # (InterruptBA).
+        self.mapping_pipeline = mapping_pipeline
+        self._kf_queue: list = []
+        self.kf_queue_depth = tpu.kf_queue_depth
+        self.kf_urgent_gap = tpu.kf_urgent_gap
+        self.kf_urgent_wait_s = tpu.kf_urgent_wait_s
+        self._no_submit = False     # a compaction's drain is in progress
+        # Chunked driver.
+        self.chunk = int(chunk)
+        self._chunk_buf = []        # [inputs, ...] awaiting dispatch
+        self._pending_chunk = None  # (fid0, buf, ChunkOut) resolved one chunk late
+        self._kf_deferred = False   # a chunk wanted a keyframe while the queue was full
+        self._resolving = False
+        # Pipelined driver.
+        self.pipeline = pipeline
+        self.pipeline_depth = 1
+        self._pending = None        # [(frame_id, TrackOut), ...] oldest first
+        self._next_ctx = None       # the context the next dispatch starts from
+        self._fused_sensor = None
         self.cam = settings.camera_model()
         orb = settings.orb
-        self.extractor = OrbExtractor(orb, settings.tpu, device=self.device)
+        self.extractor = OrbExtractor(orb, tpu, device=self.device)
         self.scale_factors = torch.from_numpy(
             pyr_ops.scale_factors(orb.n_levels, orb.scale_factor)
         ).to(self.device)
@@ -510,8 +558,7 @@ class Tracker:
             (1.0 / pyr_ops.level_sigma2(orb.n_levels, orb.scale_factor)).astype(np.float32)
         ).to(self.device)
         self.map = ms.make_empty_map(
-            settings.tpu.max_keyframes, settings.tpu.max_points,
-            settings.tpu.max_keypoints, device=self.device,
+            tpu.max_keyframes, tpu.max_points, tpu.max_keypoints, device=self.device,
         )
         self.localization_only = False  # Tracking::InformOnlyTracking
         self.state = TrackState.NOT_INITIALIZED
@@ -523,6 +570,10 @@ class Tracker:
         self.ref_kf = 0
         self.last_kf_frame_id = 0
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # Host copies of the pool state from the last chunk's read, which
+        # pool maintenance uses instead of reading the device again.
+        self._host_kf_valid = None
+        self._host_n_kf = None
         # Post-relocalization keyframe suppression (Tracking.cc:≈990).
         self._no_kf_before = 0
         # Trajectory: (frame_id, T_cr 4x4, ref_kf, is_lost) per frame.
@@ -543,29 +594,34 @@ class Tracker:
         self.metrics["host_syncs"] += 1
         return x.tolist()
 
-    # -- frame entry point -------------------------------------------------
+    # -- frame entry points ------------------------------------------------
 
     def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
         """Track one RGB-D frame; returns the current pose (world->camera)."""
-        frame = build_rgbd_frame(
-            torch.as_tensor(image, dtype=torch.float32, device=self.device),
-            torch.as_tensor(depth_map, dtype=torch.float32, device=self.device),
-            self.extractor, self.cam, self.settings.camera.depth_map_factor,
-        )
-        return self._track_frame(frame)
+        return self._track_inputs("rgbd", (image, depth_map))
 
     def track_stereo(self, image_left, image_right, timestamp: float = 0.0):
         """Track one rectified stereo pair; returns the current pose
         (world->camera)."""
-        return self._track_frame(build_stereo_frame(
-            image_left, image_right, self.extractor, self.cam, self.scale_factors))
+        return self._track_inputs("stereo", (image_left, image_right))
 
-    def _track_frame(self, frame: Frame):
-        if self.state == TrackState.NOT_INITIALIZED:
-            self._track(frame)
-        else:
-            self._track_fused(frame)
+    def _track_inputs(self, sensor: str, inputs):
+        inputs = tuple(torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                       for x in inputs)
+        if self.state != TrackState.NOT_INITIALIZED:
+            return self._track_fused(sensor, inputs)
+        self._track(self._build_frame(sensor, inputs))
         return self.last_T
+
+    def _build_frame(self, sensor: str, inputs) -> Frame:
+        if sensor == "stereo":
+            return build_stereo_frame(inputs[0], inputs[1], self.extractor, self.cam,
+                                      self.scale_factors)
+        if sensor == "rgbd":
+            return build_rgbd_frame(inputs[0], inputs[1], self.extractor, self.cam,
+                                    self.settings.camera.depth_map_factor)
+        raise NotImplementedError(
+            "monocular tracking is not ported yet (ROADMAP Queue 1 item 13)")
 
     def _track(self, frame: Frame):
         """Initialization branch of Tracking::Track (the only one reached:
@@ -598,19 +654,31 @@ class Tracker:
             last_angle=lf.angle,
         )
 
-    def _track_fused(self, frame: Frame):
-        from .track_fused import (
-            FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH, _fused_track,
-        )
+    def _step(self, frame: Frame, ctx):
+        """One frame of the Track() chain on the map."""
+        from .track_fused import _fused_track
 
         tpu = self.settings.tpu
         out = _fused_track(
-            self.map, frame, self._make_ctx(), self.cam, self.scale_factors,
-            self.inv_sigma2, self._th_depth(),
-            local_window=tpu.local_window, kf_max_gap=tpu.kf_max_gap,
+            self.map, frame, ctx, self.cam, self.scale_factors, self.inv_sigma2,
+            self._th_depth(), local_window=tpu.local_window, kf_max_gap=tpu.kf_max_gap,
             kf_busy_frames=tpu.kf_busy_frames,
         )
         self.metrics["host_syncs"] += out.host_syncs
+        return out
+
+    def _track_fused(self, sensor: str, inputs):
+        from .track_fused import FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH
+
+        self._fused_sensor = sensor
+        if self.chunk > 1:
+            return self._track_fused_chunked(sensor, inputs)
+        if self.pipeline:
+            return self._track_fused_pipelined(sensor, inputs)
+
+        self._poll_adopt()
+        frame = self._build_frame(sensor, inputs)
+        out = self._step(frame, self._make_ctx())
         self.map = out.m
         flags = self._host(out.flags)  # the per-frame decision readback
         ok = bool(flags[FLAG_OK])
@@ -628,7 +696,7 @@ class Tracker:
             self.last_T = out.T_cw
             self.n_tracked_history.append(n_in)
             self.metrics["last_inliers"] = n_in
-            if need_kf and not self.localization_only:
+            if need_kf and not self.localization_only and self._kf_gate():
                 self._create_keyframe(frame, out.T_cw, out.bindings)
                 created = True
         else:
@@ -659,6 +727,336 @@ class Tracker:
             )
         self._finish_frame(frame, out.bindings if (ok and not created and not relocated)
                            else None)
+        return self.last_T
+
+    # -- pipelined path (frame k resolved after frame k+1 is tracked) ------
+
+    def _track_fused_pipelined(self, sensor: str, inputs):
+        self._poll_adopt()
+        frame = self._build_frame(sensor, inputs)
+        ctx = self._next_ctx if self._next_ctx is not None else self._make_ctx()
+        out = self._step(frame, ctx)
+        self.map = out.m
+        self._next_ctx = out.next_ctx
+        fid = self.frame_id
+        self.frame_id += 1
+        self.last_frame = out.frame
+        if self._pending is None:
+            self._pending = []
+        self._pending.append((fid, out))
+        while len(self._pending) > self.pipeline_depth:
+            # Resolve the oldest frame in flight.
+            self._resolve_pending(self._pending.pop(0), sensor)
+        self.last_T = out.T_cw  # the best current estimate (unresolved)
+        return out.T_cw
+
+    def flush(self):
+        """Resolve every frame in flight, then drain the mapping worker and
+        its queue (call at the end of a sequence or before exporting the
+        trajectory)."""
+        sensor = self._fused_sensor
+        if self._pending_chunk is not None:
+            pc, self._pending_chunk = self._pending_chunk, None
+            self._resolve_chunk(sensor, *pc)
+        if self._chunk_buf:
+            # The tail of a chunked run (fewer than C frames buffered) goes
+            # through the pipelined single-frame path on the chained ctx.
+            buf, self._chunk_buf = self._chunk_buf, []
+            for inputs in buf:
+                self._track_fused_pipelined(sensor, inputs)
+        pending, self._pending = self._pending, None
+        for p in pending or []:
+            self._resolve_pending(p, sensor)
+        if self.mapping_pipeline is not None:
+            # The job in flight, then each queued keyframe (every adoption
+            # submits the next).
+            self._adopt(self.mapping_pipeline.wait())
+            while self._kf_queue or not self.mapping_pipeline.accept_keyframes():
+                self._submit_next_kf()
+                self._adopt(self.mapping_pipeline.wait())
+
+    def _resolve_pending(self, pending, sensor: str):
+        from .track_fused import FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH
+
+        fid, out = pending
+        flags = self._host(out.flags)
+        ok = bool(flags[FLAG_OK])
+        n_in = int(flags[FLAG_N_INLIERS])
+        # No keyframe within 10 frames of a relocalization (Tracking.cc:≈990).
+        need_kf = bool(flags[FLAG_NEED_KF]) and self.frame_id >= self._no_kf_before
+        path = int(flags[FLAG_PATH])
+        self.metrics["frames"] += 1
+        self.metrics["track_path"] = _PATHS[path]
+
+        ref_at_dispatch = out.next_ctx.ref_kf
+        if ok:
+            self.state = TrackState.OK
+            self.last_T = out.T_cw
+            self.n_tracked_history.append(n_in)
+            self.metrics["last_inliers"] = n_in
+            self.trajectory.append((fid, out.T_cr, ref_at_dispatch, False))
+            if need_kf and not self.localization_only and not self._kf_gate():
+                need_kf = False  # deferred: the mapping queue is full
+            if path == 3 and self.database is not None:
+                # Visual odometry: try to re-anchor to the map (mbVO's
+                # parallel relocalization, Tracking.cc:≈420).
+                ok_r, T, _, n_r = self._relocalize(out.frame)
+                if ok_r:
+                    self.last_T = T
+                    self.metrics["relocalizations"] += 1
+                    self.metrics["track_path"] = "reloc"
+                    if self._next_ctx is not None:
+                        # Re-anchor at the relocalized pose but keep the
+                        # measured VO velocity: the camera still moves, and
+                        # an identity prediction would put the next frame's
+                        # temporary-point projections outside the window.
+                        self._next_ctx = self._next_ctx._replace(
+                            T_last=T, has_velocity=True, velocity=out.velocity,
+                            last_bindings=self.last_bindings, ref_kf=self.ref_kf,
+                        )
+            if need_kf and not self.localization_only:
+                self._create_keyframe(out.frame, out.T_cw, out.bindings, frame_id=fid)
+                # Keyframe events are the only host writes into the chained
+                # context: the new reference keyframe, the gap counter, and
+                # the bindings scrubbed against the post-mapping pool.
+                if self._next_ctx is not None:
+                    self._next_ctx = self._next_ctx._replace(
+                        ref_kf=self.ref_kf,
+                        frames_since_kf=self.frame_id - self.last_kf_frame_id,
+                        last_bindings=self._scrub(self._next_ctx.last_bindings),
+                    )
+            return
+
+        self.state = TrackState.LOST
+        self.metrics["frames_lost"] += 1
+        relocated = False
+        if self.database is not None:
+            ok_r, T, bindings_r, n_r = self._relocalize(out.frame)
+            if ok_r:
+                self.state = TrackState.OK
+                self.last_T = T
+                self.n_tracked_history.append(n_r)
+                self.metrics["relocalizations"] += 1
+                self.metrics["track_path"] = "reloc"
+                self._mark_reloc()
+                relocated = True
+                if self._next_ctx is not None:
+                    # Re-anchor the chain at the relocalized pose with its
+                    # bindings and identity velocity: the next frame
+                    # motion-tracks the matches relocalization verified.
+                    self._next_ctx = self._next_ctx._replace(
+                        T_last=T, has_velocity=True,
+                        velocity=torch.eye(4, dtype=torch.float32, device=self.device),
+                        last_bindings=bindings_r, ref_kf=self.ref_kf,
+                    )
+        if relocated:
+            # Log the relocalized pose (relative to the new reference
+            # keyframe), not the tracked one.
+            self.trajectory.append((fid, self._relative_to_ref(T), self.ref_kf, False))
+        else:
+            self.trajectory.append((fid, out.T_cr, ref_at_dispatch, True))
+
+    # -- chunked path (C frames per call) -----------------------------------
+
+    def _track_fused_chunked(self, sensor: str, inputs):
+        self._chunk_buf.append(tuple(inputs))
+        if len(self._chunk_buf) >= self.chunk:
+            self._dispatch_chunk(sensor)
+        return self.last_T
+
+    def _dispatch_chunk(self, sensor: str):
+        from .track_fused import make_fused_chunk_tracker
+
+        # Lag policy: while a mapping job is in flight, the previous chunk is
+        # resolved after this one is tracked (keyframes are deferred then
+        # anyway); otherwise first, so that a keyframe it holds starts its
+        # mapping job now (one more chunk of mapping lag costs drift on
+        # fast turns).  flush() resolves the last one.
+        mp = self.mapping_pipeline
+        self._poll_adopt()
+        if self._pending_chunk is not None and (mp is None or mp.accept_keyframes()):
+            pc, self._pending_chunk = self._pending_chunk, None
+            self._resolve_chunk(sensor, *pc)
+            self._poll_adopt()
+
+        buf, self._chunk_buf = self._chunk_buf, []
+        fid0 = self.frame_id
+        self.frame_id += len(buf)
+        self.metrics["chunks"] = self.metrics.get("chunks", 0) + 1
+        # With the keyframe queue full the chunk makes no keyframe
+        # (SetAcceptKeyFrames(false)), unless the gap is urgent or the last
+        # chunk wanted one: then the job in flight is waited for, bounded
+        # (InterruptBA); a job that overruns the wait only defers keyframes
+        # further, it never stalls the frame cadence.
+        allow_kf = not self.localization_only
+        if mp is not None and len(self._kf_queue) >= self.kf_queue_depth:
+            if self._kf_deferred or fid0 - self.last_kf_frame_id >= self.kf_urgent_gap:
+                self._kf_deferred = False  # armed again by the next chunk's need
+                res = mp.wait(timeout=self.kf_urgent_wait_s)
+                if res is not None:
+                    self._adopt(res)
+                else:
+                    allow_kf = False
+            else:
+                allow_kf = False
+        ctx = self._next_ctx if self._next_ctx is not None else self._make_ctx()
+        tpu = self.settings.tpu
+        step = make_fused_chunk_tracker(
+            lambda inputs: self._build_frame(sensor, inputs), self.cam, self.scale_factors,
+            self.inv_sigma2, self._th_depth(), local_window=tpu.local_window,
+            kf_max_gap=tpu.kf_max_gap, kf_busy_frames=tpu.kf_busy_frames,
+        )
+        # 2**30 makes no keyframe in this chunk; otherwise the
+        # post-relocalization threshold (Tracking.cc:≈990).
+        min_kf_fid = (2**30) if not allow_kf else self._no_kf_before
+        out = step(*zip(*buf), self.map, ctx, fid0, min_kf_fid)
+        self.metrics["host_syncs"] += out.host_syncs
+        self.map = out.m
+        self._next_ctx = out.next_ctx
+        prev, self._pending_chunk = self._pending_chunk, (fid0, buf, out)
+        if prev is not None:
+            self._resolve_chunk(sensor, *prev)
+
+    def _resolve_chunk(self, sensor: str, fid0: int, buf, out):
+        self._resolving = True
+        try:
+            return self._resolve_chunk_inner(sensor, fid0, buf, out)
+        finally:
+            self._resolving = False
+
+    def _resolve_chunk_inner(self, sensor: str, fid0: int, buf, out):
+        from .kf_database import fetch
+        from .track_fused import FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH
+
+        # One read per chunk: flags, relative poses and the pool state.
+        flags, T_cr, kf_valid_np, n_kf_np = fetch([out.flags, out.T_cr, out.kf_valid, out.n_kf])
+        self.metrics["host_syncs"] += 1
+        self._host_kf_valid = kf_valid_np
+        self._host_n_kf = int(n_kf_np)
+        log_ref, kf_ids = out.log_ref, out.kf_id
+
+        mapped = False
+        for j in range(len(buf)):
+            fid = fid0 + j
+            ok = bool(flags[j, FLAG_OK])
+            n_in = int(flags[j, FLAG_N_INLIERS])
+            path = int(flags[j, FLAG_PATH])
+            kid = int(kf_ids[j])
+            self.metrics["frames"] += 1
+            self.metrics["track_path"] = _PATHS[path]
+            if ok:
+                self.state = TrackState.OK
+                self.last_T = out.T_cw[j]
+                self.n_tracked_history.append(n_in)
+                self.metrics["last_inliers"] = n_in
+            else:
+                self.state = TrackState.LOST
+                self.metrics["frames_lost"] += 1
+            self.trajectory.append((fid, T_cr[j], int(log_ref[j]), not ok))
+            if kid < 0 and bool(flags[j, FLAG_NEED_KF]) and ok:
+                # The policy wanted a keyframe but the chunk was gated: give
+                # the next dispatch's urgent wait a reason to drain the job.
+                self._kf_deferred = True
+            if kid >= 0:
+                # The chunk inserted the keyframe; the host half: the
+                # place-recognition index, local mapping and loop closing
+                # (the reference's LocalMapping queue, <= C frames of lag).
+                self.metrics["keyframes_created"] += 1
+                self._kf_deferred = False
+                self.ref_kf = kid
+                self.last_kf_frame_id = fid
+                if self.database is not None:
+                    self.database.add_keyframe(kid, self.map.kf_desc[kid],
+                                               self.map.kf_kp_valid[kid])
+                if self.mapping_pipeline is not None:
+                    self._kf_queue.append(kid)
+                    self._submit_next_kf()
+                elif self.local_mapper is not None:
+                    self.map = self.local_mapper.process_keyframe(self.map, kid)
+                    mapped = True
+                if self.mapping_pipeline is None and self.loop_closer is not None:
+                    self._close_loops(kid)
+
+        if mapped:
+            # Mapping may have culled points whose slots are reused later:
+            # scrub the chained bindings.
+            self._next_ctx = self._next_ctx._replace(
+                last_bindings=self._scrub(self._next_ctx.last_bindings))
+            self._reanchor_culled_refs()
+            self._maybe_compact()
+
+        last_vo = int(flags[-1, FLAG_PATH]) == 3
+        ok_col = flags[:, FLAG_OK].astype(bool)
+        if not ok_col.all() and not ok_col[int(np.argmax(~ok_col)):].any():
+            # Lost inside the chunk and never recovered in it: relocalize at
+            # the losing frame and requeue the rest of the chunk, so those
+            # frames are tracked again from the relocalized state.
+            j_r = int(np.argmax(~ok_col))
+        elif self.state == TrackState.LOST or last_vo:
+            # Lost at the chunk's end (maybe after a recovery in it), or
+            # visual odometry: relocalize on the last frame.
+            j_r = len(buf) - 1
+        else:
+            j_r = -1
+        if j_r >= 0 and self.database is not None:
+            # The frame is built again from its inputs.  As the reference
+            # relocalizes every frame until it succeeds (Tracking.cc:≈1290),
+            # walk forward through the lost frames until one relocalizes.
+            ok_r = False
+            while j_r < len(buf):
+                frame = self._build_frame(sensor, buf[j_r])
+                ok_r, T, bindings_r, n_r = self._relocalize(frame)
+                if ok_r or ok_col[j_r:].any():
+                    break
+                j_r += 1
+            if ok_r:
+                # A next chunk may be in flight, tracked from the lost
+                # context.  If it made no keyframe (the common case: a
+                # keyframe needs an OK frame), it is dropped and its frames
+                # requeued after this chunk's tail; if it made one, it
+                # recovered by itself and is kept, and nothing is rewound.
+                extra = []
+                pend_recovered = False
+                if self._pending_chunk is not None:
+                    _, pbuf, pout = self._pending_chunk
+                    if (pout.kf_id >= 0).any():
+                        pend_recovered = True
+                    else:
+                        self._pending_chunk = None
+                        extra = list(pbuf)
+                        self.frame_id -= len(pbuf)
+                n_requeue = (len(buf) - 1 - j_r) if not pend_recovered else 0
+                if n_requeue > 0:
+                    # Rewind the lost tail: its frames are tracked again
+                    # from the relocalized ctx with the next dispatch.  Their
+                    # first pass's visibility statistics stay counted (a
+                    # double count of few points, as in the reference).
+                    del self.trajectory[-n_requeue:]
+                    self.frame_id -= n_requeue
+                    self.metrics["frames"] -= n_requeue
+                    self.metrics["frames_lost"] -= int((~ok_col[j_r + 1:]).sum())
+                    self._chunk_buf = list(buf[j_r + 1:]) + extra + self._chunk_buf
+                elif extra:
+                    self._chunk_buf = extra + self._chunk_buf
+                self.state = TrackState.OK
+                self.last_T = T
+                self.n_tracked_history.append(n_r)
+                self.metrics["relocalizations"] += 1
+                self.metrics["track_path"] = "reloc"
+                self._mark_reloc()
+                self.trajectory[-1] = (self.trajectory[-1][0], self._relative_to_ref(T),
+                                       self.ref_kf, False)
+                # Identity-velocity continuation from the relocalization's
+                # bindings, unless the chunk in flight recovered by itself
+                # (its chained context is live).
+                if not pend_recovered:
+                    self._next_ctx = self._next_ctx._replace(
+                        T_last=T, has_velocity=True,
+                        velocity=torch.eye(4, dtype=torch.float32, device=self.device),
+                        last_bindings=bindings_r, last_xy=frame.xy, last_level=frame.level,
+                        last_depth=frame.depth, last_desc=frame.desc, last_valid=frame.valid,
+                        last_angle=frame.angle, ref_kf=self.ref_kf,
+                    )
 
     # -- relocalization ------------------------------------------------------
 
@@ -670,8 +1068,10 @@ class Tracker:
         """No keyframe insertion for 10 frames after a relocalization on a
         map of more than 10 keyframes (Tracking.cc:≈990: right after it
         the pose is anchored to old keyframes, and inserting at once would
-        duplicate them)."""
-        if self._host(self.map.n_kf) > 10:
+        duplicate them).  The chunked path uses the keyframe count of its
+        last read."""
+        n_kf = self._host_n_kf if self._host_n_kf is not None else self._host(self.map.n_kf)
+        if n_kf > 10:
             self._no_kf_before = self.frame_id + 10
 
     def _relocalize(self, frame: Frame):
@@ -748,55 +1148,144 @@ class Tracker:
         c = self.settings.camera
         return c.th_depth * c.bf / c.fx if c.bf > 0 else 1e9
 
-    def _create_keyframe(self, frame: Frame, T, bindings):
-        """Insert the frame as a keyframe, spawning close-depth points for
-        its unbound keypoints (Tracking.cc:≈1060), add it to the keyframe
-        database, then run the local mapper and the loop closer on it
-        synchronously, in that order.  Mapping and the loop correction's
-        fuse may retire points whose slots are reused later, so the held
-        bindings are scrubbed against the pool; with a local mapper,
-        trajectory entries of culled keyframes are re-anchored; the pool
-        is compacted when it nears capacity."""
+
+    def _create_keyframe(self, frame: Frame, T, bindings, frame_id: Optional[int] = None):
+        """Insert the frame (``frame_id``, default the current one) as a
+        keyframe, spawning close-depth points for its unbound keypoints
+        (Tracking.cc:≈1060), and add it to the keyframe database.  With a
+        mapping pipeline the keyframe is queued for the worker and tracking
+        goes on with its map; otherwise the local mapper and the loop
+        closer run on it now, in that order.  Mapping and the loop
+        correction's fuse may retire points whose slots are reused later,
+        so the held bindings are scrubbed against the pool; with a local
+        mapper, trajectory entries of culled keyframes are re-anchored;
+        the pool is compacted when it nears capacity."""
+        fid = self.frame_id if frame_id is None else frame_id
         m = self.map
         pos_w, ok = unproject_frame_depth(frame, T, self.cam)
         ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
         m, pids = add_points(m, pos_w, frame.desc, ok, m.n_kf, reverse=True)
         bindings = torch.where(ok & (pids >= 0), pids, bindings)
-        m, kf_id = insert_keyframe(m, frame, T, self.frame_id, bindings, self.ref_kf)
+        m, kf_id = insert_keyframe(m, frame, T, fid, bindings, self.ref_kf)
         self.map = ms.update_point_stats(m, self.scale_factors)
         self.metrics["keyframes_created"] += 1
         self.ref_kf = self._host(kf_id)
-        self.last_kf_frame_id = self.frame_id
+        self.last_kf_frame_id = fid
         self.last_bindings = bindings
         if self.database is not None:
             self.database.add_keyframe(self.ref_kf, frame.desc, frame.valid)
+        if self.mapping_pipeline is not None:
+            # The reference's LocalMapping queue: tracking keeps its map,
+            # which holds the new keyframe; the worker maps a snapshot.
+            self._kf_queue.append(self.ref_kf)
+            self._submit_next_kf()
+            return
         if self.local_mapper is None and self.loop_closer is None:
             return
         if self.local_mapper is not None:
             self.map = self.local_mapper.process_keyframe(self.map, self.ref_kf)
         if self.loop_closer is not None:
-            lc = self.loop_closer
-            syncs0 = lc.host_syncs
-            self.map = lc.process_keyframe(self.map, self.ref_kf)
-            self.metrics["host_syncs"] += lc.host_syncs - syncs0
-        self.last_bindings = torch.where(
-            self.map.pt_valid[torch.clamp(bindings, min=0).long()] & (bindings >= 0),
-            bindings, NO_POINT,
-        )
+            self._close_loops(self.ref_kf)
+        self.last_bindings = self._scrub(bindings)
         pool = self._host(torch.cat([self.map.kf_valid.to(torch.int32), self.map.n_kf.view(1)]))
         kf_valid = np.array(pool[:-1], dtype=bool)
         if self.local_mapper is not None:
             self._reanchor_culled_refs(kf_valid)
         self._maybe_compact(pool[-1])
 
+    def _close_loops(self, kf_id: int):
+        """The loop closer on keyframe ``kf_id``, in line."""
+        lc = self.loop_closer
+        syncs0 = lc.host_syncs
+        self.map = lc.process_keyframe(self.map, kf_id)
+        self.metrics["host_syncs"] += lc.host_syncs - syncs0
+
+    def _scrub(self, bindings: torch.Tensor) -> torch.Tensor:
+        """``bindings`` with every point the pool no longer holds unbound."""
+        return torch.where((bindings >= 0) & self.map.pt_valid[bindings.clamp(min=0).long()],
+                           bindings, NO_POINT)
+
+    # -- async mapping: the keyframe queue and adoption ----------------------
+
+    def _kf_gate(self) -> bool:
+        """May a keyframe be made now?  Yes while the keyframe queue has
+        room; at the urgent gap, after adopting the job in flight with a
+        bounded wait (InterruptBA), if that made room.  A job that overruns
+        the wait only defers the keyframe (SetAcceptKeyFrames(false))."""
+        mp = self.mapping_pipeline
+        if mp is None or len(self._kf_queue) < self.kf_queue_depth:
+            return True
+        if self.frame_id - self.last_kf_frame_id >= self.kf_urgent_gap:
+            res = mp.wait(timeout=self.kf_urgent_wait_s)
+            if res is not None:
+                self._adopt(res)
+            if len(self._kf_queue) < self.kf_queue_depth:
+                return True
+        return False
+
+    def _poll_adopt(self):
+        if self.mapping_pipeline is not None:
+            self._adopt(self.mapping_pipeline.poll())
+
+    def _adopt(self, result):
+        """Adopt a finished mapping job: merge what tracking changed since
+        its snapshot (``async_pipeline.adopt_mapped_state``), move the
+        tracker's poses through the job keyframe's pose delta (the
+        reference's UpdateLastFrame refresh, Tracking.cc:≈810; the velocity
+        is invariant to it) and scrub the held bindings against the new
+        pool.  Adoption reads the device only when no pool state came with
+        the job (the loop closer's detection read) or from the last chunk."""
+        if result is None:
+            return
+        from .async_pipeline import adopt_mapped_state
+
+        mapped, snapshot, job_kf, pool_state = result
+        new_map = adopt_mapped_state(mapped, snapshot, self.map, job_kf)
+        R = torch.where(new_map.kf_valid[job_kf],
+                        se3_inverse(snapshot.kf_pose_cw[job_kf]) @ new_map.kf_pose_cw[job_kf],
+                        torch.eye(4, dtype=torch.float32, device=self.device))
+        self.map = new_map
+        self.last_T = self.last_T @ R
+        if self.last_bindings is not None:
+            self.last_bindings = self._scrub(self.last_bindings)
+        if self._next_ctx is not None:
+            self._next_ctx = self._next_ctx._replace(
+                last_bindings=self._scrub(self._next_ctx.last_bindings),
+                T_last=self._next_ctx.T_last @ R,
+            )
+        if pool_state is not None:
+            kf_valid, n_kf = pool_state
+        elif self._host_kf_valid is not None:
+            # The last chunk's copy, at most a chunk old: keyframe slots are
+            # reused only by compaction, which drains and reads again.
+            kf_valid, n_kf = self._host_kf_valid, self._host_n_kf
+        else:
+            pool = self._host(torch.cat([self.map.kf_valid.to(torch.int32),
+                                         self.map.n_kf.view(1)]))
+            kf_valid, n_kf = np.array(pool[:-1], dtype=bool), pool[-1]
+        self._reanchor_culled_refs(kf_valid=np.asarray(kf_valid, dtype=bool))
+        self._maybe_compact(n_kf=int(n_kf))
+        self._submit_next_kf()
+
+    def _submit_next_kf(self):
+        """Hand the oldest queued keyframe to the mapping worker (the
+        LocalMapping thread popping mlNewKeyFrames)."""
+        mp = self.mapping_pipeline
+        if self._no_submit:
+            return  # a compaction's drain: the ids are about to be remapped
+        if mp is not None and self._kf_queue and mp.accept_keyframes():
+            mp.submit(self.map, self._kf_queue.pop(0))
+
     # -- keyframe-pool maintenance -------------------------------------------
 
-    def _reanchor_culled_refs(self, kf_valid: np.ndarray):
+    def _reanchor_culled_refs(self, kf_valid: Optional[np.ndarray] = None):
         """Re-anchor trajectory entries whose reference keyframe was culled
         to its nearest valid ancestor, while the culled pose is still that
         of the live map (the reference replays bad keyframes through their
         spanning-tree parents at save time, System.cc:≈270).  ``kf_valid``
-        is the host copy of ``map.kf_valid``."""
+        is the host copy of ``map.kf_valid`` when the caller has one."""
+        if kf_valid is None:
+            kf_valid = np.array(self._host(self.map.kf_valid), dtype=bool)
         refs = np.array([e[2] for e in self.trajectory], np.int64)
         if refs.size == 0:
             return
@@ -823,17 +1312,40 @@ class Tracker:
             for fid, T_cr, ref, lost in self.trajectory
         ]
 
-    def _maybe_compact(self, n_kf: int):
+    def _maybe_compact(self, n_kf: Optional[int] = None):
         """Compact the keyframe pool when it is within 4 slots of capacity
-        and something was culled; every keyframe id the tracker holds is
-        remapped, the keyframe database's rows too.  The trajectory must
-        already be re-anchored against the pool.  (The reference's
-        pending-chunk and async branches belong to the chunked tracker and
-        the async pipeline, not ported yet.)"""
-        if n_kf < self.map.kf_capacity - 4:
+        and something was culled; every keyframe id the tracker holds
+        (trajectory, queue, chained context) is remapped, the keyframe
+        database's and the loop closer's too.  A chunk in flight is
+        resolved first (its outputs use the old ids), and a mapping job in
+        flight is adopted first without submitting the next (its snapshot
+        uses them).  ``n_kf`` is the host copy of ``map.n_kf`` when the
+        caller has one."""
+        cap = self.map.kf_capacity
+        if n_kf is None:
+            n_kf = self._host(self.map.n_kf)
+        if n_kf < cap - 4:
             return
+        if self._pending_chunk is not None:
+            # While a chunk is being resolved (re-entered through _adopt),
+            # defer: resolving the newer chunk first would scramble the
+            # trajectory, and the 4-slot margin covers one more chunk.
+            if self._resolving:
+                return
+            pc, self._pending_chunk = self._pending_chunk, None
+            self._resolve_chunk(self._fused_sensor, *pc)
+            return self._maybe_compact()
+        mp = self.mapping_pipeline
+        if mp is not None and not mp.accept_keyframes():
+            self._no_submit = True
+            try:
+                self._adopt(mp.wait())
+            finally:
+                self._no_submit = False
+        self._reanchor_culled_refs()
         m2, kf_map = ms.compact_map(self.map)
-        if int(m2.n_kf) >= n_kf:
+        if int(m2.n_kf) >= self._host(self.map.n_kf):
+            self._submit_next_kf()  # keep the worker fed
             return  # nothing reclaimed: the pool is full
         self.map = m2
 
@@ -841,25 +1353,32 @@ class Tracker:
             return int(kf_map[k]) if k >= 0 else -1
 
         self.ref_kf = max(r(self.ref_kf), 0)
+        # Queued keyframes are valid rows and survive; drop any culled.
+        self._kf_queue = [r(k) for k in self._kf_queue if r(k) >= 0]
         self.metrics["compactions"] = self.metrics.get("compactions", 0) + 1
         self.trajectory = [
             (fid, T_cr, max(r(ref), 0), lost) for fid, T_cr, ref, lost in self.trajectory
         ]
+        if self._next_ctx is not None:
+            self._next_ctx = self._next_ctx._replace(ref_kf=self.ref_kf)
         if self.database is not None:
             self.database.remap(kf_map)
         if self.loop_closer is not None:
             self.loop_closer.remap(kf_map)
+        self._submit_next_kf()  # restart the worker on the new ids
 
     # -- bookkeeping -------------------------------------------------------
+
+    def _relative_to_ref(self, T: torch.Tensor) -> np.ndarray:
+        """T (world->camera) relative to the reference keyframe, on the host."""
+        T_rw = self.map.kf_pose_cw[self.ref_kf].cpu().numpy()
+        return T.cpu().numpy() @ np.linalg.inv(T_rw)
 
     def _log_pose(self):
         # The pose relative to the reference keyframe (mlRelativeFramePoses,
         # Tracking.cc:≈480), replayed against keyframe poses at export.
-        T_rw = self.map.kf_pose_cw[self.ref_kf].cpu().numpy()
-        T_cr = self.last_T.cpu().numpy() @ np.linalg.inv(T_rw)
-        self.trajectory.append(
-            (self.frame_id, T_cr, self.ref_kf, self.state != TrackState.OK)
-        )
+        self.trajectory.append((self.frame_id, self._relative_to_ref(self.last_T), self.ref_kf,
+                                self.state != TrackState.OK))
 
     def _finish_frame(self, frame: Frame, bindings=None):
         self.last_frame = frame
@@ -875,7 +1394,9 @@ class Tracker:
 
     def poses_wc(self) -> np.ndarray:
         """(F, 4, 4) camera-to-world trajectory, replayed against the
-        current keyframe poses (System::SaveTrajectory*'s Tcr * Trw)."""
+        current keyframe poses (System::SaveTrajectory*'s Tcr * Trw), after
+        ``flush()``."""
+        self.flush()
         kf_poses = self.map.kf_pose_cw.cpu().numpy()
         return np.stack([np.linalg.inv(_host_pose(T_cr) @ kf_poses[ref])
                          for _, T_cr, ref, _ in self.trajectory])

@@ -5,7 +5,8 @@ repository's ``native/orbslam2_native.cpp``; it is compiled on first use,
 with the flags of ``native/Makefile``, into the gitignored
 ``build/orbslam2_tpu_torch/native/`` (nothing is written into ``native/``),
 through a temporary file renamed into place so concurrent processes never
-load a half-written library.  Every entry point returns None when no C++
+load a half-written library, and under a lock, so threads that ask at once
+build it once.  Every entry point returns None when no C++
 toolchain is available, and its callers then take their pure-Python path.
 """
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -27,6 +29,7 @@ BUILD_DIR = _REPO / "build" / "orbslam2_tpu_torch" / "native"
 LIB_PATH = BUILD_DIR / "liborbslam2_native.so"
 CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall")
 _lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
 
 
 def _build() -> bool:
@@ -46,9 +49,14 @@ def _build() -> bool:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib
     if _lib is not None:
         return _lib
+    with _lock:
+        return _lib if _lib is not None else _load_locked()
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
+    global _lib
     if not LIB_PATH.exists() and not _build():
         return None
     try:

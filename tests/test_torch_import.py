@@ -61,6 +61,7 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.models.local_mapping",
     "orbslam2_tpu_torch.models.kf_database",
     "orbslam2_tpu_torch.models.loop_closing",
+    "orbslam2_tpu_torch.models.async_pipeline",
     "orbslam2_tpu_torch.models.system",
 ]
 
@@ -97,19 +98,33 @@ def test_tf32_is_off():
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(sensor="mono", enable_mapping=False, enable_loop_closing=False), "item 13"),
-    (dict(sensor="rgbd", enable_loop_closing=False, mapping_device="cpu"), "item 10"),
-    (dict(sensor="rgbd", enable_mapping=False, async_mapping=True), "item 10"),
-    (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, chunk=8), "item 11"),
-    (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, pipeline=True),
-     "item 11"),
-    (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False,
-          async_mapping=True), "item 10"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, mesh=object()),
      "item 17"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SlamSystem(_settings(), **kwargs, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sensor="rgbd", enable_loop_closing=False, mapping_device="cpu", async_mapping=True),
+    dict(sensor="rgbd", enable_mapping=False, async_mapping=True),
+    dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, chunk=8),
+    dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, pipeline=True),
+    dict(sensor="stereo", chunk=8, async_mapping=True, enable_loop_closing=True),
+])
+def test_driver_and_async_options_are_accepted(kwargs):
+    # Items 10 and 11: the drivers, async mapping and its device.
+    system = SlamSystem(_settings(), **kwargs, device="cpu")
+    tr = system.tracker
+    assert tr.chunk == kwargs.get("chunk", 0) and tr.pipeline == kwargs.get("pipeline", False)
+    # An async mapping pipeline exists only where there is a mapper.
+    wants = kwargs.get("async_mapping", False) and kwargs.get("enable_mapping", True)
+    assert (system.mapping_pipeline is not None) == wants
+    assert tr.mapping_pipeline is system.mapping_pipeline
+    if "mapping_device" in kwargs:
+        assert system.mapping_pipeline.device == torch.device(kwargs["mapping_device"])
+    system.shutdown()
 
 
 def test_tracker_refuses_mapper_database_loop_closer():

@@ -4,8 +4,10 @@ replay the reference's RANSAC draws in the port.
 ``carry_tracker(ref_system, port_system)`` copies the JAX ``SlamSystem``'s
 map, keyframe database, loop closer (streaks, edges, last loop keyframe,
 metrics) and tracker state (pose, velocity, last frame and bindings,
-reference keyframe, trajectory, counters) into the port's ``SlamSystem``
-on the CPU.  ``JaxSampler(key)`` stands in for the port tracker's and loop
+reference keyframe, trajectory, counters, and the pipelined and chunked
+drivers' chained context and keyframe queue) into the port's
+``SlamSystem`` on the CPU; the reference must have no frame in flight
+(``flush()`` it first).  ``JaxSampler(key)`` stands in for the port tracker's and loop
 closer's ``_ransac_samples``: it splits ``key`` once per RANSAC call, as
 the reference's ``_relocalize`` and ``_sim3_pipeline`` do, and draws with
 ``jax.random.choice`` and the reference's weights.
@@ -46,6 +48,8 @@ class JaxSampler:
 
 def carry_tracker(ref_system, port_system, device="cpu"):
     ref, port = ref_system.tracker, port_system.tracker
+    if ref._pending_chunk is not None or ref._chunk_buf or ref._pending:
+        raise ValueError("the reference tracker has frames in flight: flush() it first")
     port.map = convert.map_state_from_numpy(jax.tree.map(np.array, ref.map), device)
     port_system.database = port.database = convert.database_from_numpy(ref.database, device)
     t = functools.partial(convert.tensor_from_numpy, device=device)
@@ -62,6 +66,16 @@ def carry_tracker(ref_system, port_system, device="cpu"):
     port.trajectory = [(fid, np.asarray(T_cr), int(r), bool(lost))
                        for fid, T_cr, r, lost in ref.trajectory]
     port.n_tracked_history = [int(n) for n in ref.n_tracked_history]
+    # The pipelined and chunked drivers' chained context and queue state.
+    if ref._next_ctx is not None:
+        port._next_ctx = convert.track_ctx_from_numpy(jax.tree.map(np.asarray, ref._next_ctx),
+                                                      device)
+    port._kf_queue = [int(k) for k in ref._kf_queue]
+    port._kf_deferred = bool(ref._kf_deferred)
+    if ref._host_kf_valid is not None:
+        port._host_kf_valid = np.asarray(ref._host_kf_valid, bool)
+        port._host_n_kf = int(ref._host_n_kf)
+    port._fused_sensor = getattr(ref, "_fused_sensor", None)
     for k in ("frames", "frames_lost", "relocalizations", "keyframes_created",
               "last_inliers", "track_path"):
         port.metrics[k] = ref.metrics[k]

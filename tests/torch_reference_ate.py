@@ -5,6 +5,7 @@
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc    # kidnap
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --loop [--small] [--frames N]
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench [--chunk N] [--async]
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -51,6 +52,16 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   the gate scalars (matches, distinct, RANSAC ok, inliers, projections),
   the retry pass and the outcome.  ``chip_smoke.py``'s ``loop`` limits
   come from it.
+* ``--bench``: ``bench.py``'s configuration: its settings (the bench
+  settings above) and 96-frame sequence (``make_sequence(n_frames=96,
+  n_points=1500, seed=0, radius=0.35, forward=2.0)``) through the
+  reference's ``SlamSystem(settings, "rgbd", enable_loop_closing=True)``
+  with the per-frame driver, or ``--chunk N`` (bench.py's is 8), and
+  synchronous mapping, or ``--async`` (bench.py's).  Prints the ATE, the
+  keyframes created, ``jobs_run``, the loop edges, the per-frame states
+  and the wall time.  ``chip_smoke.py``'s ``drivers`` limits come from the
+  synchronous chunk-8 run; the async run's numbers depend on when each
+  job is adopted (wall-clock time) and are a class reference only.
 """
 
 import dataclasses
@@ -245,8 +256,46 @@ def loop_main(small: bool, n_frames: int):
     print(json.dumps(out))
 
 
+BENCH_SEQ = dict(n_frames=96, n_points=1500, with_depth=True, seed=0, radius=0.35, forward=2.0)
+
+
+def bench_main(chunk: int, async_mapping: bool):
+    import time
+
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+
+    s = smoke_settings()
+    seq = synthetic.make_sequence(s.camera_model(), **BENCH_SEQ)
+    t0 = time.perf_counter()
+    system = SlamSystem(s, Sensor.RGBD, chunk=chunk, async_mapping=async_mapping,
+                        enable_loop_closing=True)
+    states = []
+    for i in range(BENCH_SEQ["n_frames"]):
+        system.track_rgbd(seq.images[i], seq.depths[i], float(i) / 30.0)
+        states.append(int(system.tracking_state()))
+    system.shutdown()
+    poses = system.poses_wc()
+    tr = system.tracker
+    print(json.dumps({
+        "chunk": chunk, "async_mapping": async_mapping,
+        "ate_m": float(synthetic.ate_rmse(poses, seq.poses_wc)),
+        "keyframes_created": tr.metrics["keyframes_created"],
+        "jobs_run": system.mapping_pipeline.jobs_run if system.mapping_pipeline else None,
+        "n_kf": int(np.asarray(tr.map.n_kf)),
+        "loop_edges": [(int(a), int(b)) for a, b, _ in system.loop_closer.loop_edges],
+        "frames_lost": tr.metrics["frames_lost"],
+        "states": states,
+        "trajectory_lost": [int(f) for f, _, _, lost in tr.trajectory if lost],
+        "wall_s": time.perf_counter() - t0,
+    }))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--bench" in sys.argv[1:]:
+        args = sys.argv[1:]
+        chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 0
+        return bench_main(chunk, "--async" in args)
     if "--loop" in sys.argv[1:]:
         args = sys.argv[1:]
         n = int(args[args.index("--frames") + 1]) if "--frames" in args else LOOP_SEQ["n_frames"]
