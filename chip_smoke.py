@@ -130,13 +130,31 @@ on failure (the script then exits non-zero and prints no result):
               within 1e-5); frames/s of (b) and (c) under bench.py's metric
               name, per-call wall median and max, host syncs and launches
               per frame, launches by thread
+ 16. mono     ``SlamSystem(settings, "mono")`` with the reference's defaults
+              (synchronous mapping, the loop closer with the scale free, the
+              per-frame driver) at the bench settings on ``MONO_SEQ``
+              rendered without depth, twice: initialized within 8 frames
+              (the doubled-budget extraction, K2 in the initialization
+              search, the two-view RANSAC of 256 F and 256 H hypotheses),
+              every frame from then on OK, the Sim3-aligned ATE within
+              MONO_LIMIT_ATE_M (the reference's + 3 mm, from
+              ``torch_reference_ate.py --mono``), at least two keyframes;
+              K1 once an image, K3 at least twice a frame from the second
+              frame after initialization, K4 15 and K5 19 per local BA (the
+              initial map's and one per keyframe); every two-view attempt
+              on the card with no synchronizing call inside it and rerun on
+              the CPU from the card's inputs and samples (``InitWitness``:
+              success, model, inliers and good points equal, T21 within
+              1e-4); the second pass timed (mono frames/s) and
+              bit-identical to the first
 
 Phases 7-10 and 12-13 build their systems with loop closing off, as
 before it was ported; phase 14 runs it.  Phases 7-10 also report the keyframe database's entries: every system
 builds one, and each keyframe takes a BoW transform (plain torch, no
 hand-written kernel).  Each path's launch counts are set to 0 just before
 it runs and read just after.  The last lines are the kernel table as one JSON object (each row with
-its launches in every path, ``driver_launches`` those of phase 15), the
+its launches in every path, ``driver_launches`` those of phase 15,
+``mono_launches`` those of phase 16's first pass), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1380,7 +1398,8 @@ def render_sequence(name: str):
     """Render the kidnap's ("reloc": ``RELOC_SEQ`` at the bench settings) or
     the loop phase's ("loop": ``LOOP_SEQ`` at ``loop_settings``)
     ``make_loop_sequence``, or bench.py's ("bench": ``BENCH_SEQ`` at the
-    bench settings) ``make_sequence``; returns (sequence, seconds).
+    bench settings) or the mono phase's ("mono": ``MONO_SEQ``, no depth)
+    ``make_sequence``; returns (sequence, seconds).
     ``main`` runs it in a worker process while the earlier phases use the
     card."""
     from orbslam2_tpu_torch.utils import synthetic
@@ -1388,6 +1407,8 @@ def render_sequence(name: str):
     t0 = time.perf_counter()
     if name == "bench":
         seq = synthetic.make_sequence(bench_settings().camera_model(), **BENCH_SEQ)
+    elif name == "mono":
+        seq = synthetic.make_sequence(bench_settings().camera_model(), **MONO_SEQ)
     else:
         settings, kw = {"reloc": (bench_settings, RELOC_SEQ),
                         "loop": (loop_settings, LOOP_SEQ)}[name]
@@ -2551,6 +2572,227 @@ def drivers_check(card, settings, seq24, seq_future):
             for name in KERNELS}
 
 
+# -- 16. mono --------------------------------------------------------------------
+
+# The reference's SlamSystem(settings, "mono") with its defaults
+# (synchronous mapping, the loop closer with the scale free, the per-frame
+# driver) at the bench settings on make_sequence(**MONO_SEQ), rendered
+# without depth (`JAX_PLATFORMS=cpu python tests/torch_reference_ate.py
+# --mono`, on the CPU): one two-view attempt, at frame 1, accepted with F
+# and 170 good points; frames 1-15 OK; 2 keyframes created (4 in the map),
+# 279 points, no loop edge; ATE over frames 1-15, Sim3-aligned (mono has no
+# scale), 0.01022820439636128 m.
+MONO_SEQ = dict(n_frames=16, n_points=1500, seed=7, radius=0.25, forward=0.5)
+MONO_REF_INIT = 1
+MONO_REF_MODEL = "F"
+MONO_REF_ATE_M = 0.01022820439636128
+MONO_LIMIT_ATE_M = MONO_REF_ATE_M + 0.003
+# Should the card initialize at another frame (rounding near a gate), the
+# trajectories differ in their first keyframes: a gross gate then.
+MONO_GROSS_ATE_M = MONO_REF_ATE_M + 0.05
+MONO_INIT_WITHIN = 8
+INIT_T21_TOL = 1e-4
+# The text of torch's warning at a synchronizing call in sync debug mode
+# "warn" (the mode's first switch in a process warns that it is a
+# prototype, "Synchronization debug mode is ...", which is no such call).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class InitWitness:
+    """Records every ``twoview.initialize_two_view`` call of a mono run on
+    the card (the tracker looks the function up at each attempt): its
+    inputs and samples, its result and the calls that synchronized inside
+    it (torch's sync debug mode).  ``check`` requires every call to have
+    run on the card with no synchronizing call (a host read made on purpose
+    first must be reported), reruns it on the card (the same bits) and on
+    the CPU from the card's inputs and samples:
+    ``success``, ``used_h``, ``n_inliers`` and ``good`` equal, T21 within
+    INIT_T21_TOL."""
+
+    def __init__(self):
+        from orbslam2_tpu_torch.ops import twoview
+
+        self.module, self.inner, self.calls = twoview, twoview.initialize_two_view, []
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+
+        # A positive control: a host read on purpose must be reported.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.ones(1, device="cuda").item()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if not any(SYNC_WARNING in str(w.message) for w in caught):
+            raise AssertionError(f"torch's sync debug mode did not report a host read: "
+                                 f"{[str(w.message) for w in caught]}")
+
+        def recorded(xy1, xy2, match_valid, K, samples=None, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = self.inner(xy1, xy2, match_valid, K, samples=samples, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            self.calls.append(dict(args=(xy1, xy2, match_valid, K, samples), kw=kw, res=res,
+                                   syncs=[f"{os.path.basename(w.filename)}:{w.lineno}"
+                                          for w in caught if SYNC_WARNING in str(w.message)]))
+            return res
+
+        self.module.initialize_two_view = recorded
+        try:
+            yield self
+        finally:
+            self.module.initialize_two_view = self.inner
+
+    def check(self):
+        """Returns (attempts, the accepted attempt's record, T21's largest
+        difference from the CPU)."""
+        import torch
+
+        if not self.calls:
+            raise AssertionError("mono: no two-view attempt was made")
+        worst, accepted = 0.0, None
+        for j, c in enumerate(self.calls):
+            where = f"two-view attempt {j}"
+            if c["syncs"]:
+                raise AssertionError(f"{where}: {len(c['syncs'])} synchronizing calls inside "
+                                     f"initialize_two_view on the card, at {c['syncs']}")
+            if not all(t.is_cuda for t in c["args"] + tuple(c["res"])):
+                raise AssertionError(f"{where}: not on the card")
+            again = self.inner(*c["args"], **c["kw"])
+            if not all(torch.equal(a, b) for a, b in zip(c["res"], again)):
+                raise AssertionError(f"{where}: a second call on the same inputs differs")
+            cpu = self.inner(*(t.cpu() for t in c["args"]), **c["kw"])
+            card = [t.cpu() for t in c["res"]]
+            for name in ("success", "used_h", "n_inliers", "good"):
+                if not torch.equal(getattr(cpu, name), card[cpu._fields.index(name)]):
+                    raise AssertionError(f"{where}: {name} differs between the card and the "
+                                         f"CPU")
+            dT = float((cpu.T21 - card[1]).abs().max())
+            if bool(cpu.success):
+                worst = max(worst, dT)
+                if dT > INIT_T21_TOL:
+                    raise AssertionError(f"{where}: T21 differs from the CPU's by {dT}")
+                accepted = accepted or dict(attempt=j, used_h=bool(cpu.used_h),
+                                            n_inliers=int(cpu.n_inliers),
+                                            n_matches=int(c["args"][2].sum()))
+        return len(self.calls), accepted, worst
+
+
+def mono_pass(settings, seq, witness=None):
+    """``seq`` through ``SlamSystem(settings, "mono", device="cuda")`` with
+    the reference's defaults; launch counts from 0.  Returns a dict: the
+    system, the per-frame states, paths, tracker reads and K3 launches, the seconds, the
+    launches, the initializing frame and the summary (trajectory, ATE over
+    the frames from initialization on, Sim3-aligned, keyframes created,
+    valid keyframes, valid points)."""
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.models.system import SlamSystem
+    from orbslam2_tpu_torch.utils import synthetic
+
+    images = [torch.as_tensor(im, device="cuda") for im in seq.images]
+    system = SlamSystem(settings, "mono", device="cuda")
+    tr = system.tracker
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    states, paths, reads, k3 = [], [], [], []
+    with witness.installed() if witness else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        for i, im in enumerate(images):
+            r0, k0 = tr.metrics["host_syncs"], kernels.LAUNCHES["projection_best2"]
+            system.track_monocular(im, float(seq.timestamps[i]))
+            states.append(system.tracking_state())
+            paths.append(tr.metrics["track_path"])
+            reads.append(tr.metrics["host_syncs"] - r0)
+            k3.append(kernels.LAUNCHES["projection_best2"] - k0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    poses = system.poses_wc()
+    if not np.isfinite(poses).all() or poses.shape != (len(images), 4, 4):
+        raise AssertionError(f"mono: bad trajectory, shape {poses.shape}")
+    init = states.index(1) if 1 in states else None
+    ate = (float("nan") if init is None else
+           synthetic.ate_rmse(poses[init:], seq.poses_wc[init:], with_scale=True))
+    m = system.metrics()
+    return dict(system=system, states=states, paths=paths, reads=reads, secs=secs,
+                launches=launches, init=init, k3=k3,
+                summary=(poses, ate, tr.metrics["keyframes_created"], m["n_keyframes"],
+                         m["n_points"]))
+
+
+def mono_check(card, seq_future):
+    """Phase 16: the mono slice at the bench settings, twice: initialized
+    within MONO_INIT_WITHIN frames, every frame from then on OK, the
+    Sim3-aligned ATE within MONO_LIMIT_ATE_M (the reference's + 3 mm; a
+    gross gate should the card initialize at another frame), at least two
+    keyframes, each kernel launched (K1 once an image, the initialization's
+    doubled-budget images too; K3 at least twice a frame from the second
+    frame after initialization on; K4 and K5 15 and 19 per local BA: the
+    initial map's and one per keyframe created); InitWitness on the first
+    pass; the second pass timed and bit-identical to the first.  Returns
+    the first pass's launches."""
+    settings = bench_settings()
+    seq = rendered(seq_future, "mono", settings)
+    n = len(seq.images)
+    witness = InitWitness()
+    first = mono_pass(settings, seq, witness)
+    attempts, accepted, dT = witness.check()
+    second = mono_pass(settings, seq)
+    check_repeat("mono", first["summary"], second["summary"])
+    if second["states"] != first["states"]:
+        raise AssertionError(f"mono: states differ between the passes: {first['states']} / "
+                             f"{second['states']}")
+    init, states, launches = first["init"], first["states"], first["launches"]
+    _, ate, kc, n_kf, n_pt = first["summary"]
+    model = None if accepted is None else ("H" if accepted["used_h"] else "F")
+    n_ok = sum(st == 1 for st in states)
+    phase("mono", f"initialized at frame {init} with {model} (reference: frame {MONO_REF_INIT} "
+          f"with {MONO_REF_MODEL}), {attempts} two-view attempts, the accepted one with "
+          f"{None if accepted is None else accepted['n_inliers']} good points of "
+          f"{None if accepted is None else accepted['n_matches']} matches; tracker reads per "
+          f"frame through initialization {first['reads'][:(init or 0) + 1]}")
+    phase("mono", f"InitWitness: every attempt on the card with no synchronizing call inside "
+          f"initialize_two_view (the tracker reads its outcome once), a second call on the "
+          f"same inputs bit-identical, the CPU's rerun from the card's inputs and samples "
+          f"equal in success, model, inliers and good points, T21 within {dT:.3e}")
+    phase("mono", f"{card}: {n_ok}/{n} frames OK, ATE {ate:.6f} m over frames {init}-{n - 1} "
+          f"Sim3-aligned (reference {MONO_REF_ATE_M:.6f} m), {kc} keyframes created, {n_kf} "
+          f"valid, {n_pt} points, {first['system'].metrics()['n_loop_closures']} loop "
+          f"closures, paths {dict(collections.Counter(first['paths']))}; "
+          f"{n / second['secs']:.2f} mono frames/s (the second pass, {second['secs']:.2f} s); "
+          f"launches {launches}")
+    if init is None or init >= MONO_INIT_WITHIN:
+        raise AssertionError(f"mono: not initialized within {MONO_INIT_WITHIN} frames: {states}")
+    if any(st != 1 for st in states[init:]):
+        raise AssertionError(f"mono: frames lost after initialization: {states}")
+    limit = MONO_LIMIT_ATE_M if init == MONO_REF_INIT else MONO_GROSS_ATE_M
+    if not ate <= limit:
+        raise AssertionError(f"mono: ATE {ate} m > {limit} m")
+    if n_kf < 2:
+        raise AssertionError(f"mono: {n_kf} keyframes")
+    if launches["fast_score_nms"] != n:
+        raise AssertionError(f"mono: K1 launched {launches['fast_score_nms']} times, not once "
+                             f"per image ({n})")
+    if launches["hamming_matrix"] < 1:
+        raise AssertionError("mono: K2 never launched")
+    few = [(i, k) for i, k in enumerate(first["k3"]) if i >= init + 2 and k < 2]
+    if few:
+        raise AssertionError(f"mono: frames with fewer than 2 K3 launches: {few}")
+    if launches["ba_normal_equations"] != 15 * (kc + 1) or launches["ba_chi2"] != 19 * (kc + 1):
+        raise AssertionError(f"mono: K4/K5 launched {launches['ba_normal_equations']} / "
+                             f"{launches['ba_chi2']} times for {kc + 1} local BAs")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2566,20 +2808,21 @@ def main() -> int:
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, max SM clock "
           f"{CLOCK_HZ / 1e6:.0f} MHz")
 
-    # The sequences of phases 12, 14 and 15 render (numpy, ~1 s a frame)
-    # in two worker processes while phases 2-11 use the card; phase 15's
-    # starts when the first is done, so that no more than two compete with
-    # the timed phases for the host's cores.
+    # The sequences of phases 12, 14, 15 and 16 render (numpy, ~1 s a frame)
+    # in two worker processes while phases 2-11 use the card; those of
+    # phases 15 and 16 start as the first ones are done, so that no more
+    # than two compete with the timed phases for the host's cores.
     renders = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
     try:
         return run_phases(card, kind, t_start, {
-            name: renders.submit(render_sequence, name) for name in ("reloc", "loop", "bench")})
+            name: renders.submit(render_sequence, name)
+            for name in ("reloc", "loop", "bench", "mono")})
     finally:
         renders.shutdown(cancel_futures=True)
 
 
 def run_phases(card, kind, t_start, sequences) -> int:
-    """Phases 2-14 and the result lines; ``sequences`` holds the futures of
+    """Phases 2-16 and the result lines; ``sequences`` holds the futures of
     the loop sequences."""
     import numpy as np
     import torch
@@ -2913,6 +3156,10 @@ def run_phases(card, kind, t_start, sequences) -> int:
     # 15. the drivers: pipelined, chunked, bench.py's async system ---------------
     driver_launches = drivers_check(card, settings, seq, sequences["bench"])
 
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+    # 16. mono: two-view initialization and the per-frame path ------------------
+    mono_launches = mono_check(card, sequences["mono"])
+
     # The camera count of the main path's local-BA window (its last keyframe).
     from orbslam2_tpu_torch.models.local_mapping import _bucket
 
@@ -2969,6 +3216,7 @@ def run_phases(card, kind, t_start, sequences) -> int:
         row["localization_launches"] = loc_launches[row["name"]]
         row["loop_launches"] = loop_launches[row["name"]]
         row["driver_launches"] = driver_launches[row["name"]]
+        row["mono_launches"] = mono_launches[row["name"]]
         row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
         row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])

@@ -476,6 +476,16 @@ class LocalMapper:
         pairs_b = torch.stack([targets, kf.expand_as(targets)], 1).reshape(-1)
         return pairs_a, pairs_b, torch.repeat_interleave(target_ok, 2), targets
 
+    def on_initial_map(self, m: ms.MapState) -> ms.MapState:
+        """The mono map bootstrap's refinement (the reference runs a global
+        BA here): local BA around keyframe 1 at the two-keyframe bucket,
+        then the point statistics."""
+        if self.enable_ba:
+            sf = self.tables(m.pt_pos.device)[0]
+            m = self._local_ba(m, _kf(1, m.pt_pos.device), n_now=2)
+            m = ms.update_point_stats(m, sf)
+        return m
+
     def process_keyframe(self, m: ms.MapState, kf_id: int, abort=None,
                          n_now: int = None) -> ms.MapState:
         """The mapping sequence for keyframe ``kf_id`` (an int): cull

@@ -203,6 +203,10 @@ class LoopCloser:
             S_CL = self._compute_sim3(m, kf_id, loop_kf)
             if S_CL is None:
                 continue
+            if not self.fix_scale:
+                raise NotImplementedError(
+                    "correcting a loop with the scale free (mono) is not ported yet "
+                    "(ROADMAP Queue 1 item 13)")
             m = self._correct_loop(m, kf_id, loop_kf, S_CL)
             self.last_loop_kf = kf_id
             self.candidate_streak = {}

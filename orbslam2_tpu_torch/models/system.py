@@ -1,9 +1,10 @@
 """System facade — the public API.
 
-Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc) for
-stereo and RGB-D tracking with local mapping, relocalization and loop
-closing: ``track_stereo``, ``track_rgbd``, the per-frame, pipelined and
-chunked tracking drivers, synchronous or asynchronous mapping (a worker
+Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc):
+mono, stereo and RGB-D tracking with local mapping, relocalization and
+loop closing: ``track_monocular``, ``track_stereo``, ``track_rgbd``, the
+per-frame, pipelined and chunked tracking drivers (mono: the per-frame
+one), synchronous or asynchronous mapping (a worker
 thread on map snapshots, the reference's LocalMapping and LoopClosing
 threads), the localization-only mode switches, ``reset`` and
 ``shutdown``, the metrics snapshot and the three trajectory savers
@@ -54,11 +55,16 @@ def _not_ported(what: str, item: int):
 
 
 class SlamSystem:
-    """``SlamSystem(settings, "rgbd")`` then ``track_rgbd`` per frame, or
+    """``SlamSystem(settings)`` (mono, the default) then ``track_monocular``
+    per frame, ``SlamSystem(settings, "rgbd")`` then ``track_rgbd``, or
     ``SlamSystem(settings, "stereo")`` then ``track_stereo``;
     ``enable_mapping`` (default True) runs local mapping after each
     keyframe and ``enable_loop_closing`` (default True) the loop closer
-    after it, with the scale fixed (stereo and RGB-D observe it).  Every
+    after it, with the scale fixed for stereo and RGB-D (they observe it)
+    and free for mono.  Mono initializes from two views, then tracks with
+    the per-frame driver and synchronous mapping: with it ``pipeline``,
+    ``chunk`` and ``async_mapping`` raise, and so do the localization-only
+    mode and a loop the loop closer would correct.  Every
     system builds a keyframe database on ``vocabulary`` (by default the
     built-in 1000-word one, ``_default_vocabulary``), which relocalizes
     LOST frames and proposes loop candidates, as the reference does.
@@ -91,10 +97,13 @@ class SlamSystem:
         mesh=None,
         device="cuda",
     ):
-        if sensor == Sensor.MONOCULAR:
-            raise _not_ported("monocular tracking", 13)
-        if sensor not in (Sensor.STEREO, Sensor.RGBD):
+        if sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
+        if sensor == Sensor.MONOCULAR:
+            for name, on in (("pipeline", pipeline), ("chunk", chunk > 0),
+                             ("async_mapping", async_mapping)):
+                if on:
+                    raise _not_ported(f"monocular tracking with {name}", 13)
         if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
             raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
                             f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
@@ -136,7 +145,11 @@ class SlamSystem:
         return AsyncMappingPipeline(self.local_mapper, self.loop_closer,
                                     device=self.mapping_device)
 
-    # -- per-frame API (System::TrackStereo / TrackRGBD) -----------------
+    # -- per-frame API (System::TrackMonocular / TrackStereo / TrackRGBD) --
+
+    def track_monocular(self, image, timestamp: float):
+        self.timestamps.append(timestamp)
+        return self.tracker.track_mono(image, timestamp)
 
     def track_stereo(self, image_left, image_right, timestamp: float):
         self.timestamps.append(timestamp)
@@ -152,6 +165,8 @@ class SlamSystem:
         """Tracking only: local mapping and keyframe insertion pause (the
         reference stops LocalMapping and sets mbOnlyTracking); motion-model
         tracking leans on temporary VO points through unmapped regions."""
+        if self.sensor == Sensor.MONOCULAR:
+            raise _not_ported("monocular localization-only mode", 13)
         self.localization_only = True
         self.tracker.local_mapper = None
         self.tracker.localization_only = True

@@ -95,13 +95,18 @@ def _fused_track(
     local_window: int,
     kf_max_gap: int,
     kf_busy_frames: int,
+    sensor: str = "rgbd",
 ) -> TrackOut:
-    """One stereo or RGB-D frame of the Track() chain (the two sensors
-    share every branch; mono is not ported).  The keyframe-policy knobs
-    come from ``TpuSettings`` (the reference's function default for
-    ``kf_busy_frames`` disagrees with its settings; the port has none)."""
+    """One frame of the Track() chain.  Stereo and RGB-D share every
+    branch; mono (``sensor="mono"``) searches a 15 px window (7 otherwise),
+    has no temporary VO points and no depth-direction octave gate, and its
+    keyframe policy has a 0.9 ratio, no close points and no c1c.  The
+    keyframe-policy knobs come from ``TpuSettings`` (the reference's
+    function default for ``kf_busy_frames`` disagrees with its settings;
+    the port has none)."""
     dev = frame.xy.device
-    th = 7.0  # the reference's stereo/RGB-D search radius (15 for mono)
+    mono = sensor == "mono"
+    th = 15.0 if mono else 7.0
     reads = 0
 
     def host(x):
@@ -114,9 +119,11 @@ def _fused_track(
         T, b, n_map, n_match, n_tot = track_motion_model(
             m, frame, ctx.velocity @ ctx.T_last, ctx.last_xy, ctx.last_bindings,
             ctx.last_level, cam, scale_factors, inv_sigma2, radius,
-            T_last=ctx.T_last, last_angle=ctx.last_angle, baseline=cam.baseline,
-            last_depth=ctx.last_depth, last_desc=ctx.last_desc, last_valid=ctx.last_valid,
-            temp_depth_cap=th_depth, use_temp=ctx.only_tracking,
+            T_last=ctx.T_last, last_angle=ctx.last_angle,
+            baseline=None if mono else cam.baseline,
+            last_depth=None if mono else ctx.last_depth, last_desc=ctx.last_desc,
+            last_valid=ctx.last_valid, temp_depth_cap=th_depth,
+            use_temp=ctx.only_tracking and not mono,
         )
         return T, b, *host(torch.stack([n_map, n_match, n_tot.to(n_map.dtype)]))
 
@@ -191,8 +198,7 @@ def _fused_track(
     #   c2   weak ref-KF match ratio (or close starvation) AND > 15 inliers
     # nRefMatches counts ref-KF points with >= nMinObs observers (3 above
     # two keyframes, 2 with two, 1 with one — see the reference package).
-    # The thresholds are the stereo/RGB-D ones (mono has no close points
-    # and a 0.9 ratio).
+    # Mono has no close points, no c1c and a 0.9 ratio.
     P = m.pt_capacity
     obs_ok = (m.kf_point >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
     obs_idx = torch.where(obs_ok, m.kf_point, P).reshape(-1).long()
@@ -204,12 +210,16 @@ def _fused_track(
     min_obs = torch.where(m.n_kf > 2, 3, torch.where(m.n_kf > 1, 2, 1))
     kf_tracked = (ref_bound & (obs_counts[ref_pid.clamp(min=0).long()] >= min_obs)).sum()
     kf_tracked = kf_tracked.to(torch.float32)
-    close = (frame.depth > 0) & (frame.depth < th_depth)
-    n_close_tracked = (close & (bf >= 0)).sum()
-    n_close_total = (close & frame.valid).sum()
-    close_starved = (n_close_tracked < 100) & (n_close_total > 70)
-    c1c = (nf < 0.25 * kf_tracked) | close_starved
-    ratio_weak = nf < 0.75 * kf_tracked
+    if mono:
+        close_starved = torch.zeros((), dtype=torch.bool, device=dev)
+        c1c = close_starved
+    else:
+        close = (frame.depth > 0) & (frame.depth < th_depth)
+        n_close_tracked = (close & (bf >= 0)).sum()
+        n_close_total = (close & frame.valid).sum()
+        close_starved = (n_close_tracked < 100) & (n_close_total > 70)
+        c1c = (nf < 0.25 * kf_tracked) | close_starved
+    ratio_weak = nf < (0.9 if mono else 0.75) * kf_tracked
     c1ab = ctx.frames_since_kf >= kf_max_gap or ctx.frames_since_kf >= kf_busy_frames
     c2 = (ratio_weak | close_starved) & (nf > 15)
     need = (c1c | c1ab) & c2

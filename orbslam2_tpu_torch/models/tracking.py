@@ -1,7 +1,7 @@
-"""Tracking: the per-frame front end (stereo and RGB-D).
+"""Tracking: the per-frame front end (mono, stereo and RGB-D).
 
-Port of ``orbslam2_tpu/models/tracking.py`` for the stereo and RGB-D slices
-(``Tracking``, src/Tracking.cc).  The device functions keep the reference's
+Port of ``orbslam2_tpu/models/tracking.py`` (``Tracking``,
+src/Tracking.cc).  The device functions keep the reference's
 names and fixed shapes:
 
   track_motion_model    SearchByProjection(cur, last) + PoseOptimization
@@ -17,8 +17,12 @@ names and fixed shapes:
                         -> pose polish (Tracking::Relocalization, ≈1310)
 
 The host ``Tracker`` runs the state machine.  Initialization builds the
-first keyframe from stereo or sensor depth (StereoInitialization, ≈500);
-every later frame goes through ``track_fused._fused_track``, one frame at
+first keyframe from stereo or sensor depth (StereoInitialization, ≈500),
+or for mono the first two from a two-view reconstruction
+(MonocularInitialization and CreateInitialMapMonocular, ≈560-740: frames
+extracted with twice the feature budget, ``matcher.
+search_for_initialization``, ``twoview.initialize_two_view``); every later
+frame goes through ``track_fused._fused_track``, one frame at
 a time, pipelined (frame k resolved after frame k+1 is tracked) or in
 chunks of C frames (``track_fused.make_fused_chunk_tracker``).  A
 ``LocalMapper`` given to the tracker maps each new keyframe, in line or,
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import Settings
-from ..ops import matcher, pnp
+from ..ops import matcher, pnp, twoview
 from ..ops import pyramid as pyr_ops
 from ..ops.extractor import OrbExtractor
 from ..ops.hamming import TH_HIGH, TH_LOW, match_descriptors, rotation_consistency
@@ -50,7 +54,7 @@ from ..solvers.lie import se3_apply, se3_inverse
 from ..solvers.pose_opt import PoseObs, pose_optimization
 from ..utils.camera import CameraModel, in_image
 from . import map_state as ms
-from .frame import Frame, build_rgbd_frame, build_stereo_frame
+from .frame import Frame, build_mono_frame, build_rgbd_frame, build_stereo_frame
 
 NO_POINT = ms.NO_POINT
 
@@ -106,7 +110,7 @@ def track_motion_model(
     radius: float,
     T_last: torch.Tensor,
     last_angle: torch.Tensor,
-    baseline: float,
+    baseline: Optional[float],
     last_depth: Optional[torch.Tensor] = None,
     last_desc: Optional[torch.Tensor] = None,
     last_valid: Optional[torch.Tensor] = None,
@@ -123,7 +127,8 @@ def track_motion_model(
     bindings.  The pose is optimized on the map matches first and, when
     that leaves fewer than 20 inliers, again with the temporary ones.
     Without ``use_temp`` the reference's gated sources are all off and it
-    computes exactly the map-only search.
+    computes exactly the map-only search.  ``baseline`` None (mono) drops
+    the depth-direction octave gate.
 
     Returns (T, bindings, n_inliers_map, n_matches, n_inliers_total).
     """
@@ -147,9 +152,11 @@ def track_motion_model(
 
     # Depth-direction octave gate (ORBmatcher.cc:≈1180), stereo/RGB-D only:
     # forward motion searches higher octaves, backward motion lower ones.
-    tz = (T_pred @ se3_inverse(T_last))[2, 3]
-    one = torch.ones((), dtype=torch.int32, device=tz.device)
-    level_dir = torch.where(tz > baseline, one, torch.where(-tz > baseline, -one, 0 * one))
+    level_dir = None
+    if baseline is not None:
+        tz = (T_pred @ se3_inverse(T_last))[2, 3]
+        one = torch.ones((), dtype=torch.int32, device=tz.device)
+        level_dir = torch.where(tz > baseline, one, torch.where(-tz > baseline, -one, 0 * one))
     mres = matcher.search_by_projection(
         uv, last_level, desc_src, valid_src, frame.features,
         scale_factors, radius=radius, max_dist=TH_HIGH, ratio=0.9,
@@ -408,6 +415,34 @@ def unproject_frame_depth(
 
 
 # ---------------------------------------------------------------------------
+# Mono initialization's map bootstrap (CreateInitialMapMonocular, ≈640)
+# ---------------------------------------------------------------------------
+
+
+def median_depth_scale(points: torch.Tensor, good: torch.Tensor) -> torch.Tensor:
+    """1 / the median depth of the ``good`` points (N, 3), float32 (1e-6
+    floor on the median): the reference's ``np.median``, which takes the
+    mean of the two middle depths of an even count (``torch.median`` takes
+    the lower one), in float32, and the quotient in float64.  No host
+    read."""
+    z = points[:, 2]
+    z = torch.sort(torch.where(good, z, torch.full_like(z, float("inf")))).values
+    n = good.sum()
+    med = z.gather(0, torch.stack([(n - 1) // 2, n // 2])).sum() / 2
+    return (1.0 / torch.clamp(med.double(), min=1e-6)).to(torch.float32)
+
+
+def init_bindings(n: int, idx: torch.Tensor, ok: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
+    """The current frame's bindings after initialization: every match row i
+    writes ``pids[i]`` (``ok``) or NO_POINT to slot ``idx[i]`` (the
+    reference's ``.at[idx].set(..., mode="drop")``): a row that failed
+    still writes, and targets repeat, so the last writer wins
+    (``map_state.scatter_last``)."""
+    base = torch.full((n,), NO_POINT, dtype=torch.int32, device=idx.device)
+    return ms.scatter_last(base, idx, torch.where(ok, pids, NO_POINT).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # Relocalization (Tracking::Relocalization, src/Tracking.cc:≈1310)
 # ---------------------------------------------------------------------------
 
@@ -498,9 +533,11 @@ class Tracker:
 
     ``metrics["host_syncs"]`` counts the device-to-host reads tracking
     made (each one waits for the device when the tensors are on a GPU).
-    The relocalization's RANSAC samples come from ``generator``, a
-    ``torch.Generator`` on the tracker's device seeded 0 as the reference
-    seeds its key, through ``_ransac_samples``.
+    The RANSAC samples of relocalization and of the mono two-view
+    initialization come from ``generator``, a ``torch.Generator`` on the
+    tracker's device seeded 0 as the reference seeds its key, through
+    ``_ransac_samples``.  Mono runs the per-frame driver with synchronous
+    mapping; its other drivers raise.
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
@@ -551,6 +588,9 @@ class Tracker:
         self.cam = settings.camera_model()
         orb = settings.orb
         self.extractor = OrbExtractor(orb, tpu, device=self.device)
+        self._init_extractor = None  # mono initialization's, twice the budget
+        self.K = torch.tensor([[self.cam.fx, 0.0, self.cam.cx], [0.0, self.cam.fy, self.cam.cy],
+                               [0.0, 0.0, 1.0]], dtype=torch.float32, device=self.device)
         self.scale_factors = torch.from_numpy(
             pyr_ops.scale_factors(orb.n_levels, orb.scale_factor)
         ).to(self.device)
@@ -569,6 +609,7 @@ class Tracker:
         self.velocity: Optional[torch.Tensor] = None
         self.ref_kf = 0
         self.last_kf_frame_id = 0
+        self.init_ref: Optional[Frame] = None  # mono initialization's first frame
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         # Host copies of the pool state from the last chunk's read, which
         # pool maintenance uses instead of reading the device again.
@@ -596,6 +637,30 @@ class Tracker:
 
     # -- frame entry points ------------------------------------------------
 
+    def track_mono(self, image, timestamp: float = 0.0):
+        """Track one monocular image; returns the current pose
+        (world->camera).  Until the map is initialized each image is
+        extracted with twice the feature budget (mpIniORBextractor,
+        Tracking.cc:≈150)."""
+        return self._track_inputs("mono", (image,))
+
+    def _get_init_extractor(self) -> OrbExtractor:
+        """The mono initialization's extractor: twice the features and
+        keypoint slots, from cells of 16 px, so that the doubled budget
+        comes from more cells, not denser picks in each (near-duplicate
+        corners die under the 0.9 ratio test).  Made at the first mono
+        frame, with the two-view solver's tables."""
+        if self._init_extractor is None:
+            import dataclasses
+
+            orb, tpu = self.settings.orb, self.settings.tpu
+            self._init_extractor = OrbExtractor(
+                dataclasses.replace(orb, n_features=2 * orb.n_features),
+                dataclasses.replace(tpu, max_keypoints=2 * tpu.max_keypoints),
+                cell=16, device=self.device)
+            twoview.prepare(self.device)
+        return self._init_extractor
+
     def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
         """Track one RGB-D frame; returns the current pose (world->camera)."""
         return self._track_inputs("rgbd", (image, depth_map))
@@ -610,23 +675,28 @@ class Tracker:
                        for x in inputs)
         if self.state != TrackState.NOT_INITIALIZED:
             return self._track_fused(sensor, inputs)
-        self._track(self._build_frame(sensor, inputs))
+        self._track(self._build_frame(sensor, inputs, init=True), sensor)
         return self.last_T
 
-    def _build_frame(self, sensor: str, inputs) -> Frame:
+    def _build_frame(self, sensor: str, inputs, init: bool = False) -> Frame:
+        if sensor == "mono":
+            ext = self._get_init_extractor() if init else self.extractor
+            return build_mono_frame(inputs[0], ext, self.cam)
         if sensor == "stereo":
             return build_stereo_frame(inputs[0], inputs[1], self.extractor, self.cam,
                                       self.scale_factors)
-        if sensor == "rgbd":
-            return build_rgbd_frame(inputs[0], inputs[1], self.extractor, self.cam,
-                                    self.settings.camera.depth_map_factor)
-        raise NotImplementedError(
-            "monocular tracking is not ported yet (ROADMAP Queue 1 item 13)")
+        return build_rgbd_frame(inputs[0], inputs[1], self.extractor, self.cam,
+                                self.settings.camera.depth_map_factor)
 
-    def _track(self, frame: Frame):
+    def _track(self, frame: Frame, sensor: str):
         """Initialization branch of Tracking::Track (the only one reached:
-        initialized frames take the fused path)."""
-        self._stereo_initialize(frame)
+        initialized frames take the fused path).  A mono frame that
+        initializes comes back downselected to the keyframes' capacity;
+        until then ``last_frame`` is the doubled-budget frame."""
+        if sensor == "mono":
+            frame = self._mono_initialize(frame) or frame
+        else:
+            self._stereo_initialize(frame)
         self._log_pose()
         self._finish_frame(frame)
 
@@ -662,7 +732,7 @@ class Tracker:
         out = _fused_track(
             self.map, frame, ctx, self.cam, self.scale_factors, self.inv_sigma2,
             self._th_depth(), local_window=tpu.local_window, kf_max_gap=tpu.kf_max_gap,
-            kf_busy_frames=tpu.kf_busy_frames,
+            kf_busy_frames=tpu.kf_busy_frames, sensor=self._fused_sensor,
         )
         self.metrics["host_syncs"] += out.host_syncs
         return out
@@ -671,6 +741,11 @@ class Tracker:
         from .track_fused import FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH
 
         self._fused_sensor = sensor
+        if sensor == "mono" and (self.chunk > 1 or self.pipeline
+                                 or self.mapping_pipeline is not None):
+            raise NotImplementedError(
+                "mono with the chunked or pipelined driver or async mapping is not ported yet "
+                "(ROADMAP Queue 1 item 13)")
         if self.chunk > 1:
             return self._track_fused_chunked(sensor, inputs)
         if self.pipeline:
@@ -1120,6 +1195,84 @@ class Tracker:
 
     # -- initialization and keyframes ----------------------------------------
 
+    @staticmethod
+    def _downselect_frame(frame: Frame, bindings: torch.Tensor, n_out: int):
+        """The ``n_out`` best slots of a doubled-budget initialization frame:
+        bound (triangulated) keypoints first, then by response, in a stable
+        float64 order on the host (equal keys keep their slot order), as
+        the reference does.  One read, at initialization only."""
+        bound, valid, resp = (t.cpu().numpy() for t in (bindings >= 0, frame.valid,
+                                                        frame.response))
+        resp = resp.astype(np.float64)
+        rmax = float(resp.max()) + 1.0
+        key = bound.astype(np.float64) * (2.0 * rmax) + np.where(valid, resp, -rmax)
+        sel = torch.from_numpy(np.argsort(-key, kind="stable")[:n_out]).to(bindings.device)
+        return Frame(*(a[sel] for a in frame)), bindings[sel]
+
+    def _mono_initialize(self, frame: Frame) -> Optional[Frame]:
+        """MonocularInitialization + CreateInitialMapMonocular
+        (Tracking.cc:≈560-740).  The first frame with more than
+        ``min_init_matches`` features becomes the reference; a later one is
+        matched to it (a new reference when too few matches) and the two
+        views reconstructed.  On success the points are scaled to median
+        depth 1, both frames are downselected to the keyframes' capacity and
+        inserted as keyframes 0 (identity) and 1, both enter the keyframe
+        database, and the local mapper refines the initial map; the current
+        frame is returned downselected.  Reads: the feature count, the
+        match count and the outcome per attempt, and the keyframe ids and
+        the downselection on success."""
+        min_m = self.settings.tpu.min_init_matches
+        n_valid = self._host(frame.valid.sum())
+        if self.init_ref is None or n_valid <= min_m:
+            if n_valid > min_m:
+                self.init_ref = frame
+            return None
+        mres = matcher.search_for_initialization(self.init_ref.features, frame.features)
+        if self._host(mres.ok.sum()) < min_m:
+            self.init_ref = frame  # the reference's re-seeding
+            return None
+        iters = 256
+        res = twoview.initialize_two_view(
+            self.init_ref.xy, frame.xy[mres.idx], mres.ok, self.K,
+            samples=self._ransac_samples(mres.ok, iters, 8), iters=iters)
+        if not self._host(res.success):
+            return None
+
+        # Scale to median scene depth 1 (CreateInitialMapMonocular,
+        # Tracking.cc:≈640).
+        good = res.good
+        scale = median_depth_scale(res.points, good)
+        pts = res.points * scale
+        T21 = torch.cat([torch.cat([res.T21[:3, :3], res.T21[:3, 3:] * scale], 1),
+                         res.T21[3:]], 0)
+
+        # Keyframe 0 at the identity with the reference frame, keyframe 1 at
+        # T21 with the current one.
+        m, pids = add_points(self.map, pts, self.init_ref.desc, good, 0, reverse=True)
+        bind0 = torch.where(good, pids, NO_POINT)
+        bind1 = init_bindings(frame.xy.shape[0], mres.idx, mres.ok & good, pids)
+        N = self.settings.tpu.max_keypoints
+        ref_n, bind0_n = self._downselect_frame(self.init_ref, bind0, N)
+        cur_n, bind1_n = self._downselect_frame(frame, bind1, N)
+        self.metrics["host_syncs"] += 2
+        m, kf0 = insert_keyframe(m, ref_n, torch.eye(4, device=self.device),
+                                 self.frame_id - 1, bind0_n, -1)
+        m, kf1 = insert_keyframe(m, cur_n, T21, self.frame_id, bind1_n, 0)
+        self.map = ms.update_point_stats(m, self.scale_factors)
+        kf0, kf1 = self._host(torch.stack([kf0, kf1]))
+        if self.database is not None:
+            self.database.add_keyframe(kf0, ref_n.desc, ref_n.valid)
+            self.database.add_keyframe(kf1, cur_n.desc, cur_n.valid)
+        self.ref_kf = kf1
+        self.last_T = T21
+        self.last_bindings = bind1_n
+        self.velocity = None
+        self.state = TrackState.OK
+        self.last_kf_frame_id = self.frame_id
+        if self.local_mapper is not None:
+            self.map = self.local_mapper.on_initial_map(self.map)
+        return cur_n
+
     def _stereo_initialize(self, frame: Frame):
         # StereoInitialization's N>500 gate (Tracking.cc:≈500), scaled to
         # half the capacity for capacities below 1000.
@@ -1152,7 +1305,7 @@ class Tracker:
     def _create_keyframe(self, frame: Frame, T, bindings, frame_id: Optional[int] = None):
         """Insert the frame (``frame_id``, default the current one) as a
         keyframe, spawning close-depth points for its unbound keypoints
-        (Tracking.cc:≈1060), and add it to the keyframe database.  With a
+        (Tracking.cc:≈1060; not for mono), and add it to the keyframe database.  With a
         mapping pipeline the keyframe is queued for the worker and tracking
         goes on with its map; otherwise the local mapper and the loop
         closer run on it now, in that order.  Mapping and the loop
@@ -1162,10 +1315,11 @@ class Tracker:
         the pool is compacted when it nears capacity."""
         fid = self.frame_id if frame_id is None else frame_id
         m = self.map
-        pos_w, ok = unproject_frame_depth(frame, T, self.cam)
-        ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
-        m, pids = add_points(m, pos_w, frame.desc, ok, m.n_kf, reverse=True)
-        bindings = torch.where(ok & (pids >= 0), pids, bindings)
+        if self._fused_sensor != "mono":
+            pos_w, ok = unproject_frame_depth(frame, T, self.cam)
+            ok = ok & (bindings < 0) & (frame.depth < self._th_depth())
+            m, pids = add_points(m, pos_w, frame.desc, ok, m.n_kf, reverse=True)
+            bindings = torch.where(ok & (pids >= 0), pids, bindings)
         m, kf_id = insert_keyframe(m, frame, T, fid, bindings, self.ref_kf)
         self.map = ms.update_point_stats(m, self.scale_factors)
         self.metrics["keyframes_created"] += 1

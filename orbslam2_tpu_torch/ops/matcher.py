@@ -1,16 +1,18 @@
 """Projection-guided matching — the SearchByProjection core.
 
-Port of ``orbslam2_tpu/ops/matcher.py`` for RGB-D tracking and local
-mapping: ``ORBmatcher::SearchByProjection`` (src/ORBmatcher.cc:≈55/≈1180),
-packed Hamming nearest + second neighbour under a per-source circular
-window and octave band, and ``SearchForTriangulation`` (≈650).
+Port of ``orbslam2_tpu/ops/matcher.py``: ``ORBmatcher::SearchByProjection``
+(src/ORBmatcher.cc:≈55/≈1180), packed Hamming nearest + second neighbour
+under a per-source circular window and octave band,
+``SearchForTriangulation`` (≈650) and the monocular
+``SearchForInitialization`` (≈450).
 
 ``projection_best2`` is the projection search's core: for CUDA tensors it
 launches the fused kernel (``csrc/projection_best2.cu``), which never
 writes the (M, N) distance matrix; CPU tensors take
 ``_projection_best2_plain`` (the mask + ``masked_best2`` over the plain
-Hamming matrix).  Triangulation's matching goes through
-``hamming.hamming_matrix``, which launches its own kernel for CUDA tensors.
+Hamming matrix).  Triangulation's and initialization's matching go
+through ``hamming.hamming_matrix``, which launches its own kernel for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -79,6 +81,36 @@ def projection_best2(
     from ..kernels import projection_best2_cuda
 
     return projection_best2_cuda(*(t.contiguous() for t in args), level_band, level_dir)
+
+
+def search_for_initialization(
+    f_ref: Features,
+    f_cur: Features,
+    window: int = 100,
+    check_rotation: bool = True,
+    max_level: int = 1,
+) -> Matches:
+    """Windowed matching for monocular initialization
+    (ORBmatcher::SearchForInitialization, src/ORBmatcher.cc:≈450): pairs
+    within ``window`` px of the reference position, on the same octave, at
+    most ``max_level`` (the reference package admits octaves <= 1 where
+    ORB-SLAM2 keeps octave 0); cross-checked TH_LOW matching with ratio
+    0.9, then the rotation histogram."""
+    diff = f_ref.xy[:, None, :] - f_cur.xy[None, :, :]
+    d2 = (diff * diff).sum(-1)
+    pair_mask = (
+        (d2 <= float(window) ** 2)
+        & (f_ref.level[:, None] <= max_level)
+        & (f_cur.level[None, :] <= max_level)
+        & (f_ref.level[:, None] == f_cur.level[None, :])
+    )
+    m = match_descriptors(
+        f_ref.desc, f_ref.valid, f_cur.desc, f_cur.valid,
+        pair_mask=pair_mask, max_dist=TH_LOW, ratio=0.9, cross_check=True,
+    )
+    if check_rotation:
+        m = m._replace(ok=rotation_consistency(f_ref.angle, f_cur.angle, m.idx, m.ok))
+    return m
 
 
 def projection_match(

@@ -97,7 +97,9 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(sensor="mono", enable_mapping=False, enable_loop_closing=False), "item 13"),
+    (dict(sensor="mono", chunk=8), "item 13"),
+    (dict(sensor="mono", pipeline=True), "item 13"),
+    (dict(sensor="mono", async_mapping=True), "item 13"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, mesh=object()),
      "item 17"),
 ])
@@ -193,10 +195,34 @@ def test_stereo_system_constructs_on_cpu():
 
 
 def test_mono_still_raises():
-    with pytest.raises(NotImplementedError, match="monocular tracking.*item 13"):
-        SlamSystem(_settings(), "mono", enable_loop_closing=False, device="cpu")
+    """Mono builds with the reference's defaults: a mono LocalMapper (no
+    baseline) and a LoopCloser with the scale free.  What still raises:
+    its localization-only mode (item 13), and an unknown sensor."""
+    s = SlamSystem(_settings(), "mono", device="cpu")
+    assert isinstance(s.loop_closer, LoopCloser) and s.tracker.loop_closer is s.loop_closer
+    assert s.loop_closer.fix_scale is False
+    assert isinstance(s.local_mapper, LocalMapper) and s.tracker.local_mapper is s.local_mapper
+    assert s.local_mapper._bf == 0.0
+    assert s.local_mapper.n_tri_neighbors == min(s.settings.tpu.tri_neighbors_mono, 15)
+    assert s.tracker.chunk == 0 and not s.tracker.pipeline and s.mapping_pipeline is None
+    with pytest.raises(NotImplementedError, match="localization-only.*item 13"):
+        s.activate_localization_mode()
     with pytest.raises(ValueError, match="unknown sensor"):
         SlamSystem(_settings(), "lidar", enable_loop_closing=False, device="cpu")
+
+
+def test_mono_loop_correction_raises():
+    """A mono loop closer detects and verifies with the scale free, and a
+    loop it would correct raises, naming item 13 (no sequence makes the
+    reference close a mono loop yet)."""
+    db = KeyframeDatabase(_default_vocabulary(), 16, device="cpu")
+    lc = LoopCloser(_settings(), db, fix_scale=False, device="cpu")
+    db.detect_loop_candidates = lambda m, kf, extras=None: ([2], None, {2: {1}}, None)
+    lc.candidate_streak = {(1, 2): 2}  # the third consecutive keyframe fires
+    lc._compute_sim3 = lambda m, kf_c, kf_l: np.eye(4, dtype=np.float32)
+    m = map_state.make_empty_map(16, 64, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match="scale free.*item 13"):
+        lc.process_keyframe(m, 12)
 
 
 def test_slice_system_constructs_on_cpu():

@@ -4,12 +4,13 @@ replay the reference's RANSAC draws in the port.
 ``carry_tracker(ref_system, port_system)`` copies the JAX ``SlamSystem``'s
 map, keyframe database, loop closer (streaks, edges, last loop keyframe,
 metrics) and tracker state (pose, velocity, last frame and bindings,
-reference keyframe, trajectory, counters, and the pipelined and chunked
+reference keyframe, mono initialization's reference frame, trajectory,
+counters, and the pipelined and chunked
 drivers' chained context and keyframe queue) into the port's
 ``SlamSystem`` on the CPU; the reference must have no frame in flight
 (``flush()`` it first).  ``JaxSampler(key)`` stands in for the port tracker's and loop
 closer's ``_ransac_samples``: it splits ``key`` once per RANSAC call, as
-the reference's ``_relocalize`` and ``_sim3_pipeline`` do, and draws with
+the reference's ``_relocalize``, ``_mono_initialize`` and ``_sim3_pipeline`` do, and draws with
 ``jax.random.choice`` and the reference's weights.
 ``record_sim3_gates(loop_closer, log)`` logs every verified loop
 candidate's gate scalars and outcome, in either package.
@@ -56,6 +57,9 @@ def carry_tracker(ref_system, port_system, device="cpu"):
     port.state = int(ref.state)
     port.frame_id = ref.frame_id
     port.last_frame = convert.frame_from_numpy(jax.tree.map(np.array, ref.last_frame), device)
+    # Mono initialization's reference frame, while the map is not made.
+    port.init_ref = (None if ref.init_ref is None else
+                     convert.frame_from_numpy(jax.tree.map(np.array, ref.init_ref), device))
     port.last_T = t(np.asarray(ref.last_T, np.float32))
     port.last_bindings = t(ref.last_bindings)
     port.velocity = None if ref.velocity is None else t(np.asarray(ref.velocity, np.float32))

@@ -6,6 +6,7 @@
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --loop [--small] [--frames N]
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench [--chunk N] [--async]
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono [--seed S] [--frames N]
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -62,6 +63,16 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   and the wall time.  ``chip_smoke.py``'s ``drivers`` limits come from the
   synchronous chunk-8 run; the async run's numbers depend on when each
   job is adopted (wall-clock time) and are a class reference only.
+* ``--mono``: ``chip_smoke.py``'s ``mono`` phase: the reference's
+  ``SlamSystem(settings, "mono")`` with its defaults (synchronous mapping,
+  the loop closer built with the scale free, the per-frame driver) at the
+  bench settings on ``make_sequence(**MONO_SEQ)`` rendered without depth
+  (``--seed`` and ``--frames`` try another sequence).  Prints the frame
+  that initialized and its model (H or F), the inliers of the accepted
+  two-view solve, every attempt's outcome, the keyframes created, the
+  frames OK, the loop edges, the per-frame states and paths, and the ATE
+  over the frames from initialization on, Sim3-aligned (mono has no
+  scale).  ``chip_smoke.py``'s ``mono`` limits come from it.
 """
 
 import dataclasses
@@ -290,8 +301,68 @@ def bench_main(chunk: int, async_mapping: bool):
     }))
 
 
+# chip_smoke.py's mono sequence (MONO_SEQ there), rendered without depth.
+MONO_SEQ = dict(n_frames=16, n_points=1500, seed=7, radius=0.25, forward=0.5)
+
+
+def mono_main(seed: int, n_frames: int):
+    import time
+
+    from orbslam2_tpu.models import tracking as jtracking
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+
+    s = smoke_settings()
+    kw = dict(MONO_SEQ, seed=seed, n_frames=n_frames)
+    seq = synthetic.make_sequence(s.camera_model(), **kw)
+    attempts = []
+    solve = jtracking.twoview.initialize_two_view
+
+    def recorded(*a, **k):
+        res = solve(*a, **k)
+        attempts.append({"frame": len(states), "success": bool(res.success),
+                         "used_h": bool(res.used_h), "n_inliers": int(res.n_inliers)})
+        return res
+
+    jtracking.twoview.initialize_two_view = recorded
+    t0 = time.perf_counter()
+    try:
+        system = SlamSystem(s, Sensor.MONOCULAR)
+        states, paths = [], []
+        for i in range(n_frames):
+            system.track_monocular(seq.images[i], seq.timestamps[i])
+            states.append(int(system.tracking_state()))
+            paths.append(system.tracker.metrics["track_path"])
+    finally:
+        jtracking.twoview.initialize_two_view = solve
+    poses = system.poses_wc()
+    init = next((j for j, st in enumerate(states) if st == 1), None)
+    won = [a for a in attempts if a["success"]]
+    print(json.dumps({
+        "sequence": kw,
+        "init_frame": init,
+        "model": (("H" if won[0]["used_h"] else "F") if won else None),
+        "init_inliers": won[0]["n_inliers"] if won else None,
+        "attempts": attempts,
+        "ate_sim3_m": (None if init is None else float(
+            synthetic.ate_rmse(poses[init:], seq.poses_wc[init:], with_scale=True))),
+        "keyframes_created": system.tracker.metrics["keyframes_created"],
+        "n_kf": int(np.asarray(system.map.n_kf)),
+        "n_points": int(np.asarray(system.map.pt_valid).sum()),
+        "frames_ok": sum(st == 1 for st in states),
+        "loop_edges": [(int(a), int(b)) for a, b, _ in system.loop_closer.loop_edges],
+        "states": states,
+        "paths": paths,
+        "wall_s": time.perf_counter() - t0,
+    }))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--mono" in sys.argv[1:]:
+        args = sys.argv[1:]
+        seed = int(args[args.index("--seed") + 1]) if "--seed" in args else MONO_SEQ["seed"]
+        n = int(args[args.index("--frames") + 1]) if "--frames" in args else MONO_SEQ["n_frames"]
+        return mono_main(seed, n)
     if "--bench" in sys.argv[1:]:
         args = sys.argv[1:]
         chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 0
