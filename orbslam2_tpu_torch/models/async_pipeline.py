@@ -95,8 +95,8 @@ def adopt_mapped_state(
         inserted during the job, LoopClosing.cc:≈330).
 
     As in the reference, R is inverted as a general 4x4 matrix and no Sim3
-    scale is taken out of it; that matters only for mono (ROADMAP item 13),
-    whose loop corrections carry a scale.  No host read."""
+    scale is taken out of it; that matters only for mono, whose loop
+    corrections carry a scale.  No host read."""
     m = merge_tracking_stats(m_mapped, snapshot, m_tracked)
     dev = m.kf_pose_cw.device
     K = m.kf_capacity

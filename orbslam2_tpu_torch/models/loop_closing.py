@@ -9,8 +9,10 @@ src/LoopClosing.cc), run synchronously after local mapping:
   ComputeSim3   (≈160): SearchByBoW -> Sim3 RANSAC (``ops/sim3_solve``)
                 -> SearchBySim3 -> OptimizeSim3 (``solvers/sim3_opt``) ->
                 the loop neighbourhood's projection count -> a Sim3 polish
-                on those projections, every stage enqueued and all gate
-                scalars read back in one host read per candidate; then the
+                on those projections (its scale OptimizeSim3's, also for
+                mono: the one departure from the reference), every stage
+                enqueued and all gate scalars read back in one host read per
+                pass (the SearchByBoW counts in one before it); then the
                 host gates, the odometry-consistency gate among them.
   CorrectLoop   (≈330): the corrected Sim3 seeds the current covisible
                 group, the essential graph is optimized
@@ -53,6 +55,22 @@ from .kf_database import KeyframeDatabase, fetch
 
 CHI2_LOOP_REFINE = 10.0
 STAGE_PREFIX = "loop."  # profiler ranges: loop.<stage>
+
+
+class _BowMatches(NamedTuple):
+    """``LoopCloser._search_by_bow``'s device tensors."""
+
+    ok_c: torch.Tensor       # current keyframe's features bound to a point
+    ok_l: torch.Tensor       # the same on the loop side
+    mres: tuple              # match_descriptors' result, rotation-gated
+    distinct: torch.Tensor   # distinct loop-side targets
+    pid_c: torch.Tensor      # current-side point ids (0 where unbound)
+    pid_l_all: torch.Tensor  # loop-side point id of every loop feature
+    pair_ok: torch.Tensor    # matches whose two points are valid
+    p_c: torch.Tensor        # current-side points in the current camera
+    p_l: torch.Tensor        # matched loop-side points in the loop camera
+    lvl_c: torch.Tensor      # pyramid levels, clamped
+    lvl_l: torch.Tensor
 
 
 def loop_edge_residuals(T_cw: np.ndarray, loop_edges) -> list:
@@ -203,10 +221,6 @@ class LoopCloser:
             S_CL = self._compute_sim3(m, kf_id, loop_kf)
             if S_CL is None:
                 continue
-            if not self.fix_scale:
-                raise NotImplementedError(
-                    "correcting a loop with the scale free (mono) is not ported yet "
-                    "(ROADMAP Queue 1 item 13)")
             m = self._correct_loop(m, kf_id, loop_kf, S_CL)
             self.last_loop_kf = kf_id
             self.candidate_streak = {}
@@ -222,27 +236,27 @@ class LoopCloser:
         distinct) is matched again ungated at ratio 0.9, with RANSAC seeded
         from >= 4 inliers and SearchBySim3's windows 2.5x wider, and must
         clear the gates with >= 5 matches and >= 4 distinct (as the
-        reference does, ADVICE r5: looser than its docstring)."""
-        res = self._sim3_pipeline(m, kf_c, kf_l, node_gated=True, ratio=0.75)
-        n_matches, n_distinct = res[0], res[1]
-        if int(n_matches) >= 20 and int(n_distinct) >= 10:
-            return self._apply_sim3_gates(m, kf_c, kf_l, res)
-        if int(n_matches) < 5:
-            return self._apply_sim3_gates(m, kf_c, kf_l, res)  # logs the reject
+        reference does, ADVICE r5: looser than its docstring).  The match
+        counts of pass 1 are read first: a marginal candidate's pass 1 stops
+        there, after the RANSAC draw it would have taken (the generator
+        advances as the reference's does), since its gates read only those
+        counts."""
+        bow = self._search_by_bow(m, kf_c, kf_l, node_gated=True, ratio=0.75)
+        n_matches, n_distinct = (int(x) for x in self._fetch([bow.mres.ok.sum(), bow.distinct]))
+        if n_matches < 5 or (n_matches >= 20 and n_distinct >= 10):
+            res = self._sim3_pipeline(m, kf_c, kf_l, node_gated=True, ratio=0.75, bow=bow)
+            return self._apply_sim3_gates(m, kf_c, kf_l, res)  # logs a reject below 5
+        self._ransac_samples(bow.pair_ok, 128, 3)
         self.metrics["sim3_bow_retries"] = self.metrics.get("sim3_bow_retries", 0) + 1
         res = self._sim3_pipeline(m, kf_c, kf_l, node_gated=False, ratio=0.9, ransac_min=4,
                                   sim3_radius_mult=2.5)
         return self._apply_sim3_gates(m, kf_c, kf_l, res, min_bow=5, min_distinct=4)
 
-    def _sim3_pipeline(self, m: ms.MapState, kf_c: int, kf_l: int, node_gated: bool,
-                       ratio: float, ransac_min: int = 20, sim3_radius_mult: float = 1.0):
-        """ComputeSim3's device pipeline: SearchByBoW -> Sim3 RANSAC ->
-        SearchBySim3 -> OptimizeSim3 -> neighbourhood projection -> refine.
-        Every stage is enqueued whatever the previous one found (masked
-        inputs keep degenerate cases finite) and all gate scalars, the
-        refined Sim3 and the poses come back in ONE host read.  Returns
-        (n_matches, n_distinct, n_bound_c, n_bound_l, ransac_ok, n_inliers,
-        n_proj, S_ref, kf_pose_cw, kf_valid) as numpy."""
+    def _search_by_bow(self, m: ms.MapState, kf_c: int, kf_l: int, node_gated: bool,
+                       ratio: float) -> _BowMatches:
+        """The first stage of ``_sim3_pipeline``: SearchByBoW between the two
+        keyframes and each side's matched map points in its own camera
+        frame, all on the device."""
         with record_function(STAGE_PREFIX + "sim3_pipeline"):
             L = self.sigma2.shape[0]
             desc_c, desc_l = m.kf_desc[kf_c], m.kf_desc[kf_l]
@@ -275,6 +289,26 @@ class LoopCloser:
             p_l = se3_apply(m.kf_pose_cw[kf_l], m.pt_pos[pid_l])
             lvl_c = torch.clamp(m.kf_level[kf_c], 0, L - 1).long()
             lvl_l = torch.clamp(m.kf_level[kf_l][mres.idx], 0, L - 1).long()
+            return _BowMatches(ok_c, ok_l, mres, distinct, pid_c, pid_l_all, pair_ok, p_c, p_l,
+                               lvl_c, lvl_l)
+
+    def _sim3_pipeline(self, m: ms.MapState, kf_c: int, kf_l: int, node_gated: bool,
+                       ratio: float, ransac_min: int = 20, sim3_radius_mult: float = 1.0,
+                       bow: _BowMatches | None = None):
+        """ComputeSim3's device pipeline: SearchByBoW -> Sim3 RANSAC ->
+        SearchBySim3 -> OptimizeSim3 -> neighbourhood projection -> refine.
+        Every stage is enqueued whatever the previous one found (masked
+        inputs keep degenerate cases finite) and all gate scalars, the
+        refined Sim3 and the poses come back in ONE host read.  ``bow``:
+        the SearchByBoW stage, if ``_search_by_bow`` has run it already
+        with these arguments.  Returns (n_matches, n_distinct, n_bound_c,
+        n_bound_l, ransac_ok, n_inliers, n_proj, S_ref, kf_pose_cw,
+        kf_valid) as numpy."""
+        if bow is None:
+            bow = self._search_by_bow(m, kf_c, kf_l, node_gated, ratio)
+        with record_function(STAGE_PREFIX + "sim3_pipeline"):
+            L = self.sigma2.shape[0]
+            ok_c, ok_l, mres, distinct, pid_c, pid_l_all, pair_ok, p_c, p_l, lvl_c, lvl_l = bow
             rres = sim3_solve.sim3_ransac(
                 p_c, p_l, pair_ok, 9.21 * self.sigma2[lvl_c], 7.78 * self.sigma2[lvl_l],
                 self.cam, samples=self._ransac_samples(pair_ok, 128, 3),
@@ -308,12 +342,19 @@ class LoopCloser:
             proj = project_loop_matches(m, kf_c, kf_l, loop_group, ores.S12, self.cam,
                                         self.scale_factors)
             # Polish the Sim3 on those (many more, better spread) matches.
+            # One-directional reprojections cannot observe a Sim3's scale
+            # (pi(s R p + t) = pi(R p + t / s)), so the polish keeps
+            # OptimizeSim3's, which its two-way reprojections observe, also
+            # with the scale free.  The reference frees the scale here, and
+            # it then follows rounding (1e-6 changes of the input move it
+            # over [0.08, 6.9]), so the odometry gate rejects true loops at
+            # random.
             lvl_m = torch.clamp(m.kf_level[kf_c][proj.idx], 0, L - 1).long()
             S_ref = refine_sim3_on_projections(
                 ores.S12, proj.p_l, m.kf_xy[kf_c][proj.idx], self.inv_sigma2[lvl_m], proj.ok,
-                self.cam, fix_scale=self.fix_scale,
+                self.cam,
             )
-            # THE one host read of the candidate's verification.
+            # The one host read of the pipeline.
             return self._fetch([
                 mres.ok.sum(), distinct, ok_c.sum(), ok_l.sum(), rres.ok, ores.n_inliers,
                 proj.n_matches, S_ref, m.kf_pose_cw, m.kf_valid,
@@ -383,7 +424,7 @@ class LoopCloser:
         the corrected Sim3 of the current covisible group only seeds the
         optimization."""
         dev = m.kf_valid.device
-        S_CL = torch.from_numpy(np.asarray(S_CL_host, np.float32)).to(dev)
+        S_CL = torch.from_numpy(np.array(S_CL_host, np.float32)).to(dev)
         K = m.kf_capacity
         ar = torch.arange(K, device=dev)
         with record_function(STAGE_PREFIX + "pose_graph"):
@@ -620,14 +661,14 @@ def refine_sim3_on_projections(
     inv_sigma2: torch.Tensor,  # (L,)
     valid: torch.Tensor,       # (L,)
     cam: CameraModel,
-    fix_scale: bool = False,
     n_iters: int = 10,
 ) -> torch.Tensor:
     """One-directional Sim3 polish on the neighbourhood projection matches:
-    Huber-weighted LM on the 7-dim tangent (scale frozen when
-    ``fix_scale``), Jacobians in forward mode, every step on the device."""
+    Huber-weighted LM on the tangent with the scale frozen at S0's (these
+    reprojections cannot observe it), Jacobians in forward mode, every step
+    on the device."""
     dev = p_l.device
-    keep = scale_keep(fix_scale, dev)
+    keep = scale_keep(True, dev)
     zero7 = torch.zeros(7, dtype=torch.float32, device=dev)
     w_obs = inv_sigma2 * valid.to(torch.float32)
     sqrt_w = torch.sqrt(w_obs)

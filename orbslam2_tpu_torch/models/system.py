@@ -3,8 +3,8 @@
 Port of ``orbslam2_tpu/models/system.py`` (``System``, src/System.cc):
 mono, stereo and RGB-D tracking with local mapping, relocalization and
 loop closing: ``track_monocular``, ``track_stereo``, ``track_rgbd``, the
-per-frame, pipelined and chunked tracking drivers (mono: the per-frame
-one), synchronous or asynchronous mapping (a worker
+per-frame, pipelined and chunked tracking drivers, synchronous or
+asynchronous mapping (a worker
 thread on map snapshots, the reference's LocalMapping and LoopClosing
 threads), the localization-only mode switches, ``reset`` and
 ``shutdown``, the metrics snapshot and the three trajectory savers
@@ -61,10 +61,9 @@ class SlamSystem:
     ``enable_mapping`` (default True) runs local mapping after each
     keyframe and ``enable_loop_closing`` (default True) the loop closer
     after it, with the scale fixed for stereo and RGB-D (they observe it)
-    and free for mono.  Mono initializes from two views, then tracks with
-    the per-frame driver and synchronous mapping: with it ``pipeline``,
-    ``chunk`` and ``async_mapping`` raise, and so do the localization-only
-    mode and a loop the loop closer would correct.  Every
+    and free for mono, whose loop corrections carry a Sim3 scale.  Mono
+    initializes from two views, frame by frame, and then runs whichever
+    driver and mapping mode was chosen, as the other sensors do.  Every
     system builds a keyframe database on ``vocabulary`` (by default the
     built-in 1000-word one, ``_default_vocabulary``), which relocalizes
     LOST frames and proposes loop candidates, as the reference does.
@@ -78,8 +77,8 @@ class SlamSystem:
     device); the snapshot goes there and the result comes back.  The loop
     closer runs on the tracker's device, beside the keyframe database.
 
-    The signature and defaults are the reference's; every option this port
-    lacks raises.  ``device`` is where tracking and mapping run: the card
+    The signature and defaults are the reference's; ``mesh`` (not ported
+    yet) raises.  ``device`` is where tracking and mapping run: the card
     unless the caller asks for "cpu".
     """
 
@@ -99,11 +98,6 @@ class SlamSystem:
     ):
         if sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
-        if sensor == Sensor.MONOCULAR:
-            for name, on in (("pipeline", pipeline), ("chunk", chunk > 0),
-                             ("async_mapping", async_mapping)):
-                if on:
-                    raise _not_ported(f"monocular tracking with {name}", 13)
         if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
             raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
                             f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
@@ -165,8 +159,6 @@ class SlamSystem:
         """Tracking only: local mapping and keyframe insertion pause (the
         reference stops LocalMapping and sets mbOnlyTracking); motion-model
         tracking leans on temporary VO points through unmapped regions."""
-        if self.sensor == Sensor.MONOCULAR:
-            raise _not_ported("monocular localization-only mode", 13)
         self.localization_only = True
         self.tracker.local_mapper = None
         self.tracker.localization_only = True

@@ -291,6 +291,7 @@ def make_fused_chunk_tracker(
     local_window: int,
     kf_max_gap: int,
     kf_busy_frames: int,
+    sensor: str,
 ):
     """C frames of tracking in one call: the port of the reference's
     ``make_fused_chunk_tracker`` (a ``lax.scan`` there, a host loop here,
@@ -307,7 +308,8 @@ def make_fused_chunk_tracker(
     mode passes 2**30, the post-relocalization suppression its threshold,
     Tracking.cc:≈990).  A keyframe frame reads the device once more than a
     tracked one: whether the policy wants a keyframe, with the slot it
-    takes."""
+    takes.  ``sensor`` goes to ``_fused_track``; a mono keyframe spawns no
+    close-depth points (it has no depth)."""
     from .tracking import add_points, insert_keyframe, unproject_frame_depth
 
     def chunk(*args):
@@ -320,19 +322,20 @@ def make_fused_chunk_tracker(
             out = _fused_track(
                 m, frame, ctx, cam, scale_factors, inv_sigma2, th_depth,
                 local_window=local_window, kf_max_gap=kf_max_gap,
-                kf_busy_frames=kf_busy_frames,
+                kf_busy_frames=kf_busy_frames, sensor=sensor,
             )
             reads += out.host_syncs + 1
             need, slot = torch.stack([out.flags[FLAG_NEED_KF], out.m.n_kf.to(torch.int32)]).tolist()
             m, nctx, T_cr, kid = out.m, out.next_ctx, out.T_cr, -1
             if need and fid >= min_kf_fid:
-                # Close-depth point spawning (Tracking.cc:≈1060), from the
-                # tracker's end of the free list (see add_points).
                 bindings = out.bindings
-                pos_w, okd = unproject_frame_depth(frame, out.T_cw, cam)
-                okd = okd & (bindings < 0) & (frame.depth < th_depth)
-                m, pids = add_points(m, pos_w, frame.desc, okd, m.n_kf, reverse=True)
-                bindings = torch.where(okd & (pids >= 0), pids, bindings)
+                if sensor != "mono":
+                    # Close-depth point spawning (Tracking.cc:≈1060), from
+                    # the tracker's end of the free list (see add_points).
+                    pos_w, okd = unproject_frame_depth(frame, out.T_cw, cam)
+                    okd = okd & (bindings < 0) & (frame.depth < th_depth)
+                    m, pids = add_points(m, pos_w, frame.desc, okd, m.n_kf, reverse=True)
+                    bindings = torch.where(okd & (pids >= 0), pids, bindings)
                 m, _ = insert_keyframe(m, frame, out.T_cw, fid, bindings, ctx.ref_kf)
                 m = ms.update_point_stats(m, scale_factors)
                 kid = slot

@@ -536,8 +536,8 @@ class Tracker:
     The RANSAC samples of relocalization and of the mono two-view
     initialization come from ``generator``, a ``torch.Generator`` on the
     tracker's device seeded 0 as the reference seeds its key, through
-    ``_ransac_samples``.  Mono runs the per-frame driver with synchronous
-    mapping; its other drivers raise.
+    ``_ransac_samples``.  Mono initializes frame by frame; the driver
+    chosen takes over from the first frame after initialization.
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
@@ -741,11 +741,6 @@ class Tracker:
         from .track_fused import FLAG_N_INLIERS, FLAG_NEED_KF, FLAG_OK, FLAG_PATH
 
         self._fused_sensor = sensor
-        if sensor == "mono" and (self.chunk > 1 or self.pipeline
-                                 or self.mapping_pipeline is not None):
-            raise NotImplementedError(
-                "mono with the chunked or pipelined driver or async mapping is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
         if self.chunk > 1:
             return self._track_fused_chunked(sensor, inputs)
         if self.pipeline:
@@ -979,7 +974,7 @@ class Tracker:
         step = make_fused_chunk_tracker(
             lambda inputs: self._build_frame(sensor, inputs), self.cam, self.scale_factors,
             self.inv_sigma2, self._th_depth(), local_window=tpu.local_window,
-            kf_max_gap=tpu.kf_max_gap, kf_busy_frames=tpu.kf_busy_frames,
+            kf_max_gap=tpu.kf_max_gap, kf_busy_frames=tpu.kf_busy_frames, sensor=sensor,
         )
         # 2**30 makes no keyframe in this chunk; otherwise the
         # post-relocalization threshold (Tracking.cc:≈990).

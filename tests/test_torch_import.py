@@ -97,15 +97,27 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(sensor="mono", chunk=8), "item 13"),
-    (dict(sensor="mono", pipeline=True), "item 13"),
-    (dict(sensor="mono", async_mapping=True), "item 13"),
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, mesh=object()),
      "item 17"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SlamSystem(_settings(), **kwargs, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [dict(chunk=8), dict(pipeline=True),
+                                    dict(async_mapping=True)],
+                         ids=["chunk", "pipeline", "async_mapping"])
+def test_mono_driver_options_are_accepted(kwargs):
+    # Item 13: mono under the chunked and pipelined drivers and async
+    # mapping; the loop closer keeps the scale free.
+    system = SlamSystem(_settings(), "mono", **kwargs, device="cpu")
+    tr = system.tracker
+    assert tr.chunk == kwargs.get("chunk", 0) and tr.pipeline == kwargs.get("pipeline", False)
+    assert (system.mapping_pipeline is not None) == kwargs.get("async_mapping", False)
+    assert tr.mapping_pipeline is system.mapping_pipeline
+    assert system.loop_closer.fix_scale is False
+    system.shutdown()
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -194,10 +206,12 @@ def test_stereo_system_constructs_on_cpu():
     assert s.local_mapper._bf == s.settings.camera.bf
 
 
-def test_mono_still_raises():
+def test_mono_defaults_and_localization_mode():
     """Mono builds with the reference's defaults: a mono LocalMapper (no
-    baseline) and a LoopCloser with the scale free.  What still raises:
-    its localization-only mode (item 13), and an unknown sensor."""
+    baseline) and a LoopCloser with the scale free;
+    ``activate_localization_mode`` pauses mapping and keyframes and
+    ``deactivate_localization_mode`` resumes them.  An unknown sensor
+    raises."""
     s = SlamSystem(_settings(), "mono", device="cpu")
     assert isinstance(s.loop_closer, LoopCloser) and s.tracker.loop_closer is s.loop_closer
     assert s.loop_closer.fix_scale is False
@@ -205,24 +219,38 @@ def test_mono_still_raises():
     assert s.local_mapper._bf == 0.0
     assert s.local_mapper.n_tri_neighbors == min(s.settings.tpu.tri_neighbors_mono, 15)
     assert s.tracker.chunk == 0 and not s.tracker.pipeline and s.mapping_pipeline is None
-    with pytest.raises(NotImplementedError, match="localization-only.*item 13"):
-        s.activate_localization_mode()
+    s.activate_localization_mode()
+    assert s.localization_only and s.tracker.localization_only
+    assert s.tracker.local_mapper is None
+    s.deactivate_localization_mode()
+    assert not s.localization_only and not s.tracker.localization_only
+    assert s.tracker.local_mapper is s.local_mapper
     with pytest.raises(ValueError, match="unknown sensor"):
         SlamSystem(_settings(), "lidar", enable_loop_closing=False, device="cpu")
 
 
-def test_mono_loop_correction_raises():
+def test_mono_loop_is_corrected_with_the_scale_free():
     """A mono loop closer detects and verifies with the scale free, and a
-    loop it would correct raises, naming item 13 (no sequence makes the
-    reference close a mono loop yet)."""
+    loop that fires goes to ``_correct_loop`` (the correction itself is
+    held to the reference in ``test_torch_mono_loop.py``)."""
     db = KeyframeDatabase(_default_vocabulary(), 16, device="cpu")
     lc = LoopCloser(_settings(), db, fix_scale=False, device="cpu")
     db.detect_loop_candidates = lambda m, kf, extras=None: ([2], None, {2: {1}}, None)
     lc.candidate_streak = {(1, 2): 2}  # the third consecutive keyframe fires
-    lc._compute_sim3 = lambda m, kf_c, kf_l: np.eye(4, dtype=np.float32)
+    S = np.diag([0.8, 0.8, 0.8, 1.0]).astype(np.float32)
+    lc._compute_sim3 = lambda m, kf_c, kf_l: S
+    calls = []
+
+    def correct(m, kf_c, kf_l, S_CL):
+        calls.append((kf_c, kf_l, S_CL, lc.fix_scale))
+        return m
+
+    lc._correct_loop = correct
     m = map_state.make_empty_map(16, 64, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="scale free.*item 13"):
-        lc.process_keyframe(m, 12)
+    assert lc.process_keyframe(m, 12) is m
+    assert len(calls) == 1 and calls[0][:2] == (12, 2) and calls[0][2] is S
+    assert calls[0][3] is False
+    assert lc.last_loop_kf == 12 and lc.candidate_streak == {}
 
 
 def test_slice_system_constructs_on_cpu():

@@ -200,6 +200,29 @@ def test_sim3_pipeline_gate_scalars(loop_map, retry, fix_scale):
     assert {k: v for k, v in tl.metrics.items()} == jl.metrics
 
 
+@pytest.mark.parametrize("kf_l", [1, 8, 13])
+def test_compute_sim3_reads_the_match_counts_first(loop_map, kf_l):
+    """``_compute_sim3`` reads SearchByBoW's counts before the rest of pass
+    1 and stops a marginal candidate's pass 1 there: the same decision,
+    S_CL and metrics as the reference, which runs both passes whole, and
+    the same RANSAC draws taken.  Keyframes 1 and 8 give 9-10 node-gated
+    matches (the retry), keyframe 13 27 (pass 1 whole)."""
+    d = loop_map
+    jl, tl = closers(d)
+    ref = jl._compute_sim3(jmap(d), d["kf_c"], kf_l)
+    out = tl._compute_sim3(tmap(d), d["kf_c"], kf_l)
+    assert (out is None) == (ref is None)
+    if out is not None:
+        np.testing.assert_allclose(out, np.asarray(ref), atol=S_TOL)
+    assert tl.metrics == jl.metrics
+    retried = jl.metrics.get("sim3_bow_retries", 0)
+    assert bool(retried) == (kf_l != 13)
+    assert tl._ransac_samples.calls == 1 + retried
+    np.testing.assert_array_equal(np.asarray(tl._ransac_samples.key), np.asarray(jl.key))
+    # One read for the counts, one for the pass that runs whole.
+    assert tl.host_syncs == 2
+
+
 def test_correct_loop(loop_map):
     d = loop_map
     jl, tl = closers(d)

@@ -2,11 +2,13 @@
 the tracker's drivers (pipelined, chunked, async mapping) on the CPU, and
 hold the port to the reference.
 
-``run_pair`` feeds both systems the same RGB-D frames and logs, after each
-call, the tracker's state, path, relocalization and keyframe counts;
-``check_pair`` asserts those logs, the keyframes' frame ids, the
-trajectory's frames and lost flags equal, the poses within POS_TOL_M and
-ROT_TOL_RAD and |ATE_port - ATE_ref| <= ATE_TOL_M.
+``run_pair`` feeds both systems the same RGB-D frames (or mono images,
+with ``depths`` None) and logs, after each call, the tracker's state,
+path, relocalization and keyframe counts; ``check_pair`` asserts those
+logs, the keyframes' frame ids, the trajectory's frames and lost flags
+equal, the poses within POS_TOL_M and ROT_TOL_RAD (or the caller's
+``pos_tol``) and |ATE_port - ATE_ref| <= ATE_TOL_M (Sim3-aligned with
+``with_scale``, as mono wants).
 """
 
 import jax
@@ -47,11 +49,11 @@ def sequence_vocabulary(settings, images, frames):
     return vocab, convert.vocabulary_from_numpy(jax.tree.map(np.asarray, vocab))
 
 
-def make_pair(settings, vocab=None, port_vocab=None, **kw):
+def make_pair(settings, vocab=None, port_vocab=None, sensor="rgbd", **kw):
     """The reference's and the port's system with the same options; the
     port draws the reference's RANSAC samples."""
-    ref = JSlamSystem(settings, "rgbd", vocabulary=vocab, **kw)
-    port = SlamSystem(convert.settings_from_reference(settings), "rgbd", vocabulary=port_vocab,
+    ref = JSlamSystem(settings, sensor, vocabulary=vocab, **kw)
+    port = SlamSystem(convert.settings_from_reference(settings), sensor, vocabulary=port_vocab,
                       device="cpu", **kw)
     port.tracker._ransac_samples = JaxSampler(ref.tracker.init_key)
     return ref, port
@@ -76,13 +78,17 @@ def count_requeues(system):
 
 def run_pair(ref, port, images, depths, feed, before=None):
     """Feed frames ``feed`` to both systems (call ``before(j, i)`` ahead of
-    call j), then shut both down; returns the per-call logs."""
+    call j), then shut both down; returns the per-call logs.  With
+    ``depths`` None the frames are mono images."""
     logs = {"ref": [], "port": []}
     for j, i in enumerate(feed):
         if before is not None:
             before(j, i)
         for name, system in (("ref", ref), ("port", port)):
-            system.track_rgbd(images[i], depths[i], float(j))
+            if depths is None:
+                system.track_monocular(images[i], float(j))
+            else:
+                system.track_rgbd(images[i], depths[i], float(j))
             logs[name].append(record(system))
     ref.shutdown()
     port.shutdown()
@@ -99,7 +105,8 @@ def trajectory_frames(system):
     return [(int(fid), bool(lost)) for fid, _, _, lost in system.tracker.trajectory]
 
 
-def check_pair(ref, port, logs, gt, poses=True):
+def check_pair(ref, port, logs, gt, poses=True, pos_tol=POS_TOL_M, rot_tol=ROT_TOL_RAD,
+               with_scale=False):
     """The port against the reference after ``run_pair``; ``poses=False``
     leaves the poses to the caller and holds only |dATE|."""
     assert logs["port"] == logs["ref"]
@@ -110,8 +117,8 @@ def check_pair(ref, port, logs, gt, poses=True):
     if poses:
         dt = np.abs(out[:, :3, 3] - want[:, :3, 3]).max(axis=1)
         dr = [rot_angle(a[:3, :3].T @ b[:3, :3]) for a, b in zip(out, want)]
-        assert dt.max() <= POS_TOL_M, dt
-        assert max(dr) <= ROT_TOL_RAD, dr
-    d_ate = abs(jsyn.ate_rmse(out, gt, with_scale=False)
-                - jsyn.ate_rmse(want, gt, with_scale=False))
+        assert dt.max() <= pos_tol, dt
+        assert max(dr) <= rot_tol, dr
+    d_ate = abs(jsyn.ate_rmse(out, gt, with_scale=with_scale)
+                - jsyn.ate_rmse(want, gt, with_scale=with_scale))
     assert d_ate <= ATE_TOL_M, d_ate

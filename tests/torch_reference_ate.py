@@ -5,8 +5,9 @@
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc    # kidnap
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --loop [--small] [--frames N]
-    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench [--chunk N] [--async]
-    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono [--seed S] [--frames N]
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench [--chunk N] [--async] [--frames N]
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono [--seed S] [--frames N] [--chunk N]
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono-loop
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -58,7 +59,8 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   n_points=1500, seed=0, radius=0.35, forward=2.0)``) through the
   reference's ``SlamSystem(settings, "rgbd", enable_loop_closing=True)``
   with the per-frame driver, or ``--chunk N`` (bench.py's is 8), and
-  synchronous mapping, or ``--async`` (bench.py's).  Prints the ATE, the
+  synchronous mapping, or ``--async`` (bench.py's); ``--frames N`` feeds the
+  sequence's first N frames.  Prints the ATE, the
   keyframes created, ``jobs_run``, the loop edges, the per-frame states
   and the wall time.  ``chip_smoke.py``'s ``drivers`` limits come from the
   synchronous chunk-8 run; the async run's numbers depend on when each
@@ -72,7 +74,20 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   two-view solve, every attempt's outcome, the keyframes created, the
   frames OK, the loop edges, the per-frame states and paths, and the ATE
   over the frames from initialization on, Sim3-aligned (mono has no
-  scale).  ``chip_smoke.py``'s ``mono`` limits come from it.
+  scale).  ``--chunk N`` runs the chunked driver (``chunk=N``, mapping
+  still synchronous) and prints the same.  ``chip_smoke.py``'s ``mono``
+  limits come from it.
+* ``--mono-loop``: ``tests/test_slam_e2e.py::TestLoopClosing::
+  test_mono_loop_closure_production_config`` through the reference:
+  ``small_settings(bf=0)`` with pools of 160 keyframes and 16384 points,
+  ``make_loop_sequence(**MONO_LOOP_SEQ)`` and a vocabulary (k=10, L=4)
+  trained on every 6th frame, ``SlamSystem(settings, "mono", vocabulary=...)``
+  with loop closing on.  Prints the keyframe and frame at which the first
+  loop fired, its edge, S_CL and its scale, the frames lost, the loop
+  edges, the keyframes, the Sim3-aligned ATE and the run's seconds.
+  ``save=`` (``tools/torch_mono_loop_state.py``) also writes the state just
+  before the firing keyframe's ``process_keyframe`` to an ``.npz``.
+  About 9 minutes on the CPU.
 """
 
 import dataclasses
@@ -270,7 +285,7 @@ def loop_main(small: bool, n_frames: int):
 BENCH_SEQ = dict(n_frames=96, n_points=1500, with_depth=True, seed=0, radius=0.35, forward=2.0)
 
 
-def bench_main(chunk: int, async_mapping: bool):
+def bench_main(chunk: int, async_mapping: bool, n_frames: int = BENCH_SEQ["n_frames"]):
     import time
 
     from orbslam2_tpu.models.system import Sensor, SlamSystem
@@ -281,15 +296,15 @@ def bench_main(chunk: int, async_mapping: bool):
     system = SlamSystem(s, Sensor.RGBD, chunk=chunk, async_mapping=async_mapping,
                         enable_loop_closing=True)
     states = []
-    for i in range(BENCH_SEQ["n_frames"]):
+    for i in range(n_frames):
         system.track_rgbd(seq.images[i], seq.depths[i], float(i) / 30.0)
         states.append(int(system.tracking_state()))
     system.shutdown()
     poses = system.poses_wc()
     tr = system.tracker
     print(json.dumps({
-        "chunk": chunk, "async_mapping": async_mapping,
-        "ate_m": float(synthetic.ate_rmse(poses, seq.poses_wc)),
+        "chunk": chunk, "async_mapping": async_mapping, "n_frames": n_frames,
+        "ate_m": float(synthetic.ate_rmse(poses, seq.poses_wc[:n_frames])),
         "keyframes_created": tr.metrics["keyframes_created"],
         "jobs_run": system.mapping_pipeline.jobs_run if system.mapping_pipeline else None,
         "n_kf": int(np.asarray(tr.map.n_kf)),
@@ -305,7 +320,7 @@ def bench_main(chunk: int, async_mapping: bool):
 MONO_SEQ = dict(n_frames=16, n_points=1500, seed=7, radius=0.25, forward=0.5)
 
 
-def mono_main(seed: int, n_frames: int):
+def mono_main(seed: int, n_frames: int, chunk: int = 0):
     import time
 
     from orbslam2_tpu.models import tracking as jtracking
@@ -326,12 +341,13 @@ def mono_main(seed: int, n_frames: int):
     jtracking.twoview.initialize_two_view = recorded
     t0 = time.perf_counter()
     try:
-        system = SlamSystem(s, Sensor.MONOCULAR)
+        system = SlamSystem(s, Sensor.MONOCULAR, chunk=chunk)
         states, paths = [], []
         for i in range(n_frames):
             system.track_monocular(seq.images[i], seq.timestamps[i])
             states.append(int(system.tracking_state()))
             paths.append(system.tracker.metrics["track_path"])
+        system.shutdown()
     finally:
         jtracking.twoview.initialize_two_view = solve
     poses = system.poses_wc()
@@ -339,6 +355,7 @@ def mono_main(seed: int, n_frames: int):
     won = [a for a in attempts if a["success"]]
     print(json.dumps({
         "sequence": kw,
+        "chunk": chunk,
         "init_frame": init,
         "model": (("H" if won[0]["used_h"] else "F") if won else None),
         "init_inliers": won[0]["n_inliers"] if won else None,
@@ -356,17 +373,166 @@ def mono_main(seed: int, n_frames: int):
     }))
 
 
+# tests/test_slam_e2e.py::test_mono_loop_closure_production_config's
+# sequence and pools.
+MONO_LOOP_SEQ = dict(n_frames=280, circle_radius=2.5, with_depth=False, seed=6, n_points=2500)
+MONO_LOOP_POOLS = dict(max_keyframes=160, max_points=16384)
+
+
+def mono_loop_setup():
+    """The reference fixture's settings, sequence and vocabulary."""
+    from orbslam2_tpu.ops.bow import train_vocabulary
+    from orbslam2_tpu.ops.extractor import OrbExtractor
+    from test_slam_e2e import small_settings
+
+    s = small_settings(bf=0.0)
+    s = dataclasses.replace(s, tpu=dataclasses.replace(s.tpu, **MONO_LOOP_POOLS))
+    seq = synthetic.make_loop_sequence(s.camera_model(), **MONO_LOOP_SEQ)
+    ex = OrbExtractor(s.orb, s.tpu)
+    descs = np.concatenate([np.asarray(f.desc)[np.asarray(f.valid)]
+                            for f in (ex(seq.images[i])
+                                      for i in range(0, MONO_LOOP_SEQ["n_frames"], 6))])
+    return s, seq, train_vocabulary(descs, k=10, levels=4, seed=0)
+
+
+def _capture_first_loop(system, frame_of, draws, captured):
+    """Wrap the loop closer's ``process_keyframe`` so that ``captured``
+    receives, for the first call that adds a loop edge, the state it
+    started from (map, database, streaks, edges, RANSAC key), the keyframe
+    and frame, the Sim3 RANSAC draws it made and the map it returned."""
+    lc = system.loop_closer
+    inner = lc.process_keyframe
+
+    def process(m, kf_id, abort=None):
+        if captured:
+            return inner(m, kf_id, abort)
+        db = lc.db
+        before = dict(
+            m=jax.device_get(m), kf_id=int(kf_id), frame=frame_of(), key=np.asarray(lc.key),
+            streak=[(list(map(int, g)), int(n)) for g, n in lc.candidate_streak.items()],
+            edges=[(int(a), int(b), np.asarray(S, np.float32)) for a, b, S in lc.loop_edges],
+            last_loop_kf=int(lc.last_loop_kf),
+            db={name: jax.device_get(getattr(db, name)) for name in
+                (("db_words", "db_weights") if db.sparse else ("bow",)) + ("has_entry",
+                                                                           "db_nodes")},
+        )
+        del draws[:]
+        out = inner(m, kf_id, abort)
+        if len(lc.loop_edges) > len(before["edges"]):
+            captured.update(before, out=jax.device_get(out), draws=list(draws))
+        return out
+
+    lc.process_keyframe = process
+
+
+def _record_sim3_draws(draws):
+    """Wrap the reference's ``sim3_ransac`` so that each call's samples
+    (as ``jax.random.choice`` draws them from its key) go to ``draws``."""
+    from orbslam2_tpu.ops import sim3_solve
+    from torch_carried_tracker import _choice
+
+    solve = sim3_solve.sim3_ransac
+
+    def recorded(p1, p2, valid, max_err1, max_err2, cam, key, iters=128, **kw):
+        draws.append(np.asarray(_choice(key, valid, iters, 3), np.int32))
+        return solve(p1, p2, valid, max_err1, max_err2, cam, key, iters=iters, **kw)
+
+    sim3_solve.sim3_ransac = recorded
+    return solve
+
+
+def save_mono_loop_state(path, captured, vocab, result):
+    """Write the captured state (``_capture_first_loop``) to ``path``:
+    ``map.<field>``, ``db.<name>``, ``vocab.<field>``, ``edges.S``, ``draws``,
+    ``out.kf_pose_cw`` and ``out.pt_pos`` (the map the firing call returned)
+    as arrays, and the host values as JSON in ``meta``."""
+    arrays = {f"map.{k}": np.asarray(v) for k, v in captured["m"]._asdict().items()}
+    arrays.update({f"db.{k}": np.asarray(v) for k, v in captured["db"].items()
+                   if v is not None})
+    arrays.update({f"vocab.{k}": np.asarray(getattr(vocab, k))
+                   for k in ("node_desc", "children", "word_id", "idf")})
+    arrays["edges.S"] = np.array([S for _, _, S in captured["edges"]],
+                                 np.float32).reshape(-1, 4, 4)
+    arrays["draws"] = np.stack(captured["draws"]).astype(np.int32)
+    arrays["key"] = np.asarray(captured["key"], np.uint32)
+    arrays["out.kf_pose_cw"] = np.asarray(captured["out"].kf_pose_cw)
+    arrays["out.pt_pos"] = np.asarray(captured["out"].pt_pos)
+    meta = dict(kf_id=captured["kf_id"], frame=captured["frame"],
+                streak=captured["streak"], last_loop_kf=captured["last_loop_kf"],
+                edges=[(a, b) for a, b, _ in captured["edges"]], vocab_levels=int(vocab.levels),
+                feat_capacity=int(result.pop("_feat_capacity")),
+                sparse=bool(result.pop("_sparse")), result=result)
+    arrays["meta"] = np.array(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+
+
+def mono_loop_main(save=None):
+    import time
+
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+
+    t0 = time.perf_counter()
+    s, seq, vocab = mono_loop_setup()
+    n = MONO_LOOP_SEQ["n_frames"]
+    system = SlamSystem(s, Sensor.MONOCULAR, vocabulary=vocab, enable_loop_closing=True)
+    states = []
+    captured, draws = {}, []
+    _capture_first_loop(system, lambda: len(states), draws, captured)
+    solve = _record_sim3_draws(draws)
+    try:
+        for i in range(n):
+            system.track_monocular(seq.images[i], seq.timestamps[i])
+            states.append(int(system.tracking_state()))
+        system.shutdown()
+    finally:
+        from orbslam2_tpu.ops import sim3_solve
+
+        sim3_solve.sim3_ransac = solve
+    lc = system.loop_closer
+    edges = [(int(a), int(b)) for a, b, _ in lc.loop_edges]
+    S = np.asarray(lc.loop_edges[0][2], np.float64) if edges else None
+    result = {
+        "sequence": MONO_LOOP_SEQ,
+        "fired_kf": captured.get("kf_id"),
+        "fired_frame": captured.get("frame"),
+        "edge": edges[0] if edges else None,
+        "S_CL": None if S is None else S.tolist(),
+        "scale": None if S is None else float(np.cbrt(np.linalg.det(S[:3, :3]))),
+        "frames_lost": sum(st == 2 for st in states),
+        "loop_edges": edges,
+        "n_kf": int(np.asarray(system.map.n_kf)),
+        "keyframes_created": system.tracker.metrics["keyframes_created"],
+        "ate_sim3_m": float(synthetic.ate_rmse(system.poses_wc(), seq.poses_wc,
+                                               with_scale=True)),
+        "draws": len(captured.get("draws", [])),
+        "metrics": {k: v for k, v in lc.metrics.items() if isinstance(v, int)},
+        "states": states,
+        "wall_s": time.perf_counter() - t0,
+    }
+    print(json.dumps(result), flush=True)
+    if save is not None and captured:
+        db = lc.db
+        save_mono_loop_state(save, captured, vocab,
+                             dict(result, _feat_capacity=db._feat_capacity, _sparse=db.sparse))
+    return result
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--mono-loop" in sys.argv[1:]:
+        return mono_loop_main()
     if "--mono" in sys.argv[1:]:
         args = sys.argv[1:]
         seed = int(args[args.index("--seed") + 1]) if "--seed" in args else MONO_SEQ["seed"]
         n = int(args[args.index("--frames") + 1]) if "--frames" in args else MONO_SEQ["n_frames"]
-        return mono_main(seed, n)
+        chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 0
+        return mono_main(seed, n, chunk)
     if "--bench" in sys.argv[1:]:
         args = sys.argv[1:]
         chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 0
-        return bench_main(chunk, "--async" in args)
+        n = (int(args[args.index("--frames") + 1]) if "--frames" in args
+             else BENCH_SEQ["n_frames"])
+        return bench_main(chunk, "--async" in args, n)
     if "--loop" in sys.argv[1:]:
         args = sys.argv[1:]
         n = int(args[args.index("--frames") + 1]) if "--frames" in args else LOOP_SEQ["n_frames"]
