@@ -117,13 +117,13 @@ on failure (the script then exits non-zero and prints no result):
  15. drivers  (a) ``pipeline=True`` on phase 8's first 12 frames, held against
               the same run on the CPU through the frame after the first
               keyframe; (b) ``chunk=8`` with synchronous mapping and loop
-              closing on the first 48 of bench.py's 96 frames
+              closing on the first 32 of bench.py's 96 frames
               (``BENCH_SEQ``), timed:
               every frame OK, ATE within DRIVERS_LIMIT_ATE_M
               (the reference's chunk-8 run + 3 mm), every kernel launched;
               (c) bench.py's own ``SlamSystem(chunk=8, async_mapping=True,
-              enable_loop_closing=True)``: a warm-up quarter pass, then a timed
-              pass on a fresh system: every frame OK, at least 3 keyframes
+              enable_loop_closing=True)``: a timed pass on a fresh system
+              (after (b), which takes the first calls' costs): every frame OK, at least 3 keyframes
               and 3 mapping jobs (bench.py's assertion), ATE within (b)'s +
               1 cm, no job in flight and an empty keyframe queue after
               ``shutdown()``, K2/K4/K5 launched from the mapping worker
@@ -175,6 +175,26 @@ on failure (the script then exits non-zero and prints no result):
               and decisions equal, S_CL within (a)'s tolerances); the
               firing frame, where the pass's time goes, per-stage
               correction times, launches and peak memory
+ 18. dataset  phase 7's 24 frames written to disk in the TUM RGB-D layout
+              (8-bit rgb/*.png, 16-bit depth/*.png at DepthMapFactor 5000,
+              rgb.txt, associations.txt, groundtruth.txt, a reference-format
+              settings YAML with the Tpu.* keys): (A)
+              ``examples/torch_run_dataset.main`` in this process with the
+              reference's defaults (synchronous mapping, loop closing), the
+              live viewer and ``--gt``: every frame read and OK, both
+              trajectory files, evaluate.py's ATE within TUM_LIMIT_ATE_M
+              (the reference's on the same files + 3 mm, from
+              ``torch_reference_ate.py --tum``); (B) the frames decoded by
+              ``utils/datasets`` and fed to ``utils/live.LiveDriver`` with
+              depth stamps jittered by up to 5 ms in alternating order: the
+              trajectory and the launches equal (A)'s bit for bit; A's map
+              through ``save_map`` / ``load_map(device="cuda")``, every
+              field ``torch.equal``; ``fit_plane_ransac`` on that map with
+              samples from a CUDA generator, rerun on the CPU with them
+              (inliers equal, normal up to sign and centroid within 1e-5);
+              the AR overlay, the frame and the viewer's snapshots written
+              as PNGs; K1-K5 launched in (A); frames/s through the loaders,
+              PNG decode ms, checkpoint ms and bytes
 
 Phases 7-10 and 12-13 build their systems with loop closing off, as
 before it was ported; phase 14 runs it.  Phases 7-10 also report the keyframe database's entries: every system
@@ -183,7 +203,8 @@ hand-written kernel).  Each path's launch counts are set to 0 just before
 it runs and read just after.  The last lines are the kernel table as one JSON object (each row with
 its launches in every path, ``driver_launches`` those of phase 15,
 ``mono_launches`` those of phase 16's first pass, ``mono_driver_launches``
-its drivers', ``mono_loop_launches`` phase 17's), the
+its drivers', ``mono_loop_launches`` phase 17's, ``dataset_launches``
+phase 18's), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2315,26 +2336,28 @@ def loop_check(card, seq_future):
 
 # bench.py's sequence (bench.py:55-67) and chunk (bench.py:42), at the bench
 # settings; phase 15 (b) and (c) feed its first BENCH_FRAMES frames (a
-# depth cut that makes room for phase 17).  The JAX reference's
-# SlamSystem(settings, "rgbd", chunk=8, enable_loop_closing=True) with
-# synchronous mapping tracks all 48, creates 7 keyframes, closes no loop
-# and reaches ATE DRIVERS_REF_ATE_M (`JAX_PLATFORMS=cpu python
-# tests/torch_reference_ate.py --bench --chunk 8 --frames 48`, run on the
-# CPU; over all 96 frames 0.015167599662350487 m, 21 keyframes); the
+# depth cut: 48 to make room for phase 17, 32 for phase 18).  The JAX
+# reference's SlamSystem(settings, "rgbd", chunk=8, enable_loop_closing=True)
+# with synchronous mapping tracks all 32, creates 4 keyframes, closes no
+# loop and reaches ATE DRIVERS_REF_ATE_M (`JAX_PLATFORMS=cpu python
+# tests/torch_reference_ate.py --bench --chunk 8 --frames 32`, run on the
+# CPU; over 48 frames 0.010742452721481884 m and 7 keyframes, over all 96
+# 0.015167599662350487 m and 21); the
 # chunked phase may lie 3 mm above it, as the mapping phase may, and
 # bench.py's constructor (async mapping, whose adoption points depend on
 # wall-clock time) 1 cm above the chunked run.
 BENCH_SEQ = dict(n_frames=96, n_points=1500, with_depth=True, seed=0, radius=0.35, forward=2.0)
-BENCH_FRAMES = 48
+BENCH_FRAMES = 32
 BENCH_CHUNK = 8
-DRIVERS_REF_ATE_M = 0.010742452721481884
+DRIVERS_REF_ATE_M = 0.005490924277531817
 DRIVERS_LIMIT_ATE_M = DRIVERS_REF_ATE_M + 0.003
 ASYNC_ATE_MARGIN_M = 0.01
 # AdoptWitness: the first adoptions of the async pass, each rerun on the CPU.
 ADOPT_WITNESSED = 3
 # Depth cut to make room for phase 17: (a) runs the first 12 of the 24
-# frames (the CPU comparison needs the frame after the first keyframe); (c)
-# warms up on a quarter of its frames (12).
+# frames (the CPU comparison needs the frame after the first keyframe); and
+# for phase 18, (b) and (c) run 32 frames (were 48) and (c) runs without
+# its warm-up pass.
 PIPELINE_FRAMES = 12
 ADOPT_FLOAT_TOL = 1e-5
 FPS_METRIC = "slam_pipeline_fps_640x480_1000feat_kf_on"
@@ -2490,11 +2513,10 @@ def drivers_check(card, settings, seq24, seq_future):
     """Phase 15: (a) the pipelined tracker on the mapping phase's first
     PIPELINE_FRAMES frames against the CPU; (b) the chunked tracker (chunk
     8, synchronous mapping, loop closing) on the first BENCH_FRAMES of
-    bench.py's frames, timed, within DRIVERS_LIMIT_ATE_M; (c)
-    bench.py's own SlamSystem (chunk 8, async
-    mapping, loop closing): a warm-up quarter pass, then a timed pass with
-    AdoptWitness.  Returns each kernel's launches in (a), (b) and (c), and
-    in (c) those of the mapping worker."""
+    bench.py's frames, timed, within DRIVERS_LIMIT_ATE_M; (c) bench.py's
+    own SlamSystem (chunk 8, async mapping, loop closing): a timed pass
+    with AdoptWitness.  Returns each kernel's launches in (a), (b) and (c),
+    and in (c) those of the mapping worker."""
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.models.async_pipeline import WORKER_THREAD
 
@@ -2556,13 +2578,10 @@ def drivers_check(card, settings, seq24, seq_future):
           f"({n_chunks} chunks)")
     drivers_line(card, f"(b) chunk {BENCH_CHUNK}, synchronous", b)
 
-    # (c) bench.py's constructor: warm-up quarter pass, then a timed pass -----------
+    # (c) bench.py's constructor, timed (no warm-up pass of its own since
+    # phase 18 came: (b) ran the same kernels at the same shapes just
+    # before) -------------------------------------------------------------------
     bench_kw = dict(chunk=BENCH_CHUNK, async_mapping=True)
-    half = type(seq)(**{f: (getattr(seq, f)[: n // 4] if f != "world" else seq.world)
-                        for f in seq._fields})
-    warm = drivers_pass(settings, half, **bench_kw)
-    phase("drivers", f"(c) warm-up: {n // 4} frames, {warm['summary'][2]} keyframes, "
-          f"{warm['system'].mapping_pipeline.jobs_run} jobs, lost {warm['lost']}")
     with AdoptWitness() as witness, LayerClock() as clock:
         c = drivers_pass(settings, seq, **bench_kw)
     system = c["system"]
@@ -3446,6 +3465,288 @@ def mono_loop_from_frame_0(card, settings, arrays, meta, seq):
     return run["launches"]
 
 
+# -- 18. dataset: a TUM RGB-D sequence on disk through the port's drivers -----------
+
+# The reference's SlamSystem(settings, "rgbd") with its defaults (synchronous
+# mapping, loop closing on) over phase 7's 24 frames written in the TUM
+# RGB-D layout by ``write_tum_fixture`` (8-bit images, 16-bit depth at
+# DepthMapFactor 5000) and read back by the reference's loaders
+# (`JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --tum`, on the
+# CPU): every frame OK, 4 keyframes created, no loop edge, evaluate.py's
+# ATE (SE3) over the 24 pairs of the written CameraTrajectory.txt and
+# groundtruth.txt 0.01032277909077322 m.
+TUM_REF_ATE_M = 0.01032277909077322
+TUM_LIMIT_ATE_M = TUM_REF_ATE_M + 0.003
+TUM_T0 = 1305031100.0
+TUM_DEPTH_FACTOR = 5000.0
+TUM_VIEWER_EVERY = 2
+# LiveDriver's depth stamps: jittered by up to 5 ms, in alternating order.
+TUM_JITTER_S = 0.005
+AR_INLIER_TH = 0.05
+AR_TOL = 1e-5
+
+
+def settings_yaml(settings, depth_map_factor: float) -> str:
+    """``settings`` as a reference-format settings file (OpenCV YAML with the
+    ``Tpu.*`` capacity keys), at ``depth_map_factor``."""
+    c, o, t = settings.camera, settings.orb, settings.tpu
+    keys = [
+        ("Camera.fx", c.fx), ("Camera.fy", c.fy), ("Camera.cx", c.cx), ("Camera.cy", c.cy),
+        ("Camera.k1", c.k1), ("Camera.k2", c.k2), ("Camera.p1", c.p1), ("Camera.p2", c.p2),
+        ("Camera.k3", c.k3), ("Camera.width", c.width), ("Camera.height", c.height),
+        ("Camera.fps", c.fps), ("Camera.bf", c.bf), ("Camera.RGB", c.rgb),
+        ("ThDepth", c.th_depth), ("DepthMapFactor", depth_map_factor),
+        ("ORBextractor.nFeatures", o.n_features), ("ORBextractor.scaleFactor", o.scale_factor),
+        ("ORBextractor.nLevels", o.n_levels), ("ORBextractor.iniThFAST", 20),
+        ("ORBextractor.minThFAST", o.min_th_fast), ("Tpu.maxKeypoints", t.max_keypoints),
+        ("Tpu.maxKeyFrames", t.max_keyframes), ("Tpu.maxPoints", t.max_points),
+    ]
+    return "%YAML:1.0\n" + "".join(f"{k}: {v!r}\n" for k, v in keys)
+
+
+def write_tum_fixture(seq, root, settings) -> list:
+    """``seq`` (images and depths) in the TUM RGB-D layout under ``root``:
+    8-bit ``rgb/*.png``, 16-bit ``depth/*.png`` at DepthMapFactor 5000,
+    ``rgb.txt``, ``depth.txt``, ``associations.txt``, ``groundtruth.txt``
+    and ``settings.yaml`` (``settings`` at that factor); returns the
+    timestamps."""
+    import numpy as np
+    from PIL import Image
+
+    from orbslam2_tpu_torch.models.system import _tum_line
+
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rgb = ["# color images", "# timestamp filename"]
+    depth = ["# depth images", "# timestamp filename"]
+    assoc = []
+    gt = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    stamps = []
+    for i in range(len(seq.images)):
+        ts = TUM_T0 + i / 30.0
+        rgb_name, depth_name = f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png"
+        Image.fromarray(np.clip(seq.images[i], 0, 255).astype(np.uint8)).save(
+            os.path.join(root, rgb_name))
+        d16 = np.clip(seq.depths[i] * TUM_DEPTH_FACTOR, 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(root, depth_name))
+        rgb.append(f"{ts:.6f} {rgb_name}")
+        depth.append(f"{ts:.6f} {depth_name}")
+        assoc.append(f"{ts:.6f} {rgb_name} {ts:.6f} {depth_name}")
+        gt.append(_tum_line(ts, seq.poses_wc[i]).strip())
+        stamps.append(float(f"{ts:.6f}"))
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", depth), ("associations.txt", assoc),
+                        ("groundtruth.txt", gt)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write(settings_yaml(settings, TUM_DEPTH_FACTOR))
+    return stamps
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def dataset_check(card, settings, seq):
+    """Phase 18: phase 7's frames written as a TUM RGB-D sequence and run
+    (A) through ``examples/torch_run_dataset.main`` in this process with
+    the reference's defaults, the live viewer and ``--gt``; (B) decoded
+    by ``utils/datasets`` and fed to ``LiveDriver`` with jittered depth
+    stamps in alternating order, which must repeat A bit for bit; A's map
+    saved and loaded on the card equal; the AR plane on it rerun on the CPU;
+    the overlay, frame and map PNGs written.  Returns each kernel's
+    launches in A and in B."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.config import Settings
+    from orbslam2_tpu_torch.models.map_state import MapState
+    from orbslam2_tpu_torch.models.system import SlamSystem
+    from orbslam2_tpu_torch.ops.pnp import draw_samples
+    from orbslam2_tpu_torch.utils import ar, checkpoint, datasets, viewer
+    from orbslam2_tpu_torch.utils.live import LiveDriver
+
+    run_dataset = load_example("torch_run_dataset")
+    n = len(seq.images)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        stamps = write_tum_fixture(seq, root, settings)
+        fixture_bytes = sum(os.path.getsize(os.path.join(d, f))
+                            for d, _, fs in os.walk(root) for f in fs)
+        phase("dataset", f"{n} frames written in the TUM RGB-D layout ({fixture_bytes} bytes) "
+              f"in {time.perf_counter() - t0:.2f} s")
+        out = os.path.join(root, "out")
+        assoc, gt = os.path.join(root, "associations.txt"), os.path.join(root, "groundtruth.txt")
+        map_path = os.path.join(root, "map.npz")
+
+        # (A) the dataset CLI, in this process -----------------------------------
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        system_a = run_dataset.main([
+            "--dataset", "tum", "--sensor", "rgbd", "--path", root, "--assoc", assoc,
+            "--settings", os.path.join(root, "settings.yaml"), "--out", out,
+            "--viewer-every", str(TUM_VIEWER_EVERY), "--gt", gt, "--save-map", map_path,
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        a_secs = time.perf_counter() - t0
+        launches_a = dict(kernels.LAUNCHES)
+        traj = os.path.join(out, "CameraTrajectory.txt")
+        kf_traj = os.path.join(out, "KeyFrameTrajectory.txt")
+        with open(traj) as f:
+            lines = f.read().strip().split("\n")
+        with open(kf_traj) as f:
+            kf_lines = f.read().strip().split("\n")
+        lost = [fid for fid, _, _, bad in system_a.tracker.trajectory if bad]
+        ev = run_dataset.load_evaluate().evaluate_files(traj, gt, fmt="tum")
+        snaps = sorted(p for p in os.listdir(out) if p.startswith("map_"))
+        a_metrics = system_a.metrics()
+        phase("dataset", f"(A) examples/torch_run_dataset.main, the reference's defaults: {n} "
+              f"frames read, {n - len(lost)} OK, lost {lost}, {len(lines)} trajectory lines, "
+              f"{len(kf_lines)} keyframe lines, {a_metrics['keyframes_created']} keyframes "
+              f"created, {a_metrics['n_loop_closures']} loop edges; evaluate.py: ATE "
+              f"{ev['ate_rmse_m']:.6f} m over {ev['pairs']} pairs (reference "
+              f"{TUM_REF_ATE_M:.6f} m, limit {TUM_LIMIT_ATE_M:.6f} m), RPE "
+              f"{ev['rpe_trans_rmse_m']:.6f} m; {len(snaps)} viewer snapshots; launches "
+              f"{launches_a}")
+        phase("dataset", f"{card}: (A) {n / a_secs:.2f} frames/s through the loaders, the "
+              f"viewer and the writers ({a_secs:.2f} s for {n} frames, shutdown and files "
+              f"included)")
+        if lost or a_metrics["frames_lost"] or len(lines) != n or len(lines[0].split()) != 8:
+            raise AssertionError(f"dataset (A): lost {lost}, {len(lines)} trajectory lines")
+        if len(kf_lines) < 2 or len(snaps) < 2 or "map_final.png" not in snaps:
+            raise AssertionError(f"dataset (A): {len(kf_lines)} keyframe lines, snapshots {snaps}")
+        if ev["pairs"] != n or not ev["ate_rmse_m"] <= TUM_LIMIT_ATE_M:
+            raise AssertionError(f"dataset (A): ATE {ev['ate_rmse_m']} m over {ev['pairs']} "
+                                 f"pairs, limit {TUM_LIMIT_ATE_M} m")
+
+        # (B) the same frames decoded, through LiveDriver ---------------------------
+        t0 = time.perf_counter()
+        frames = list(datasets.iter_tum_rgbd(root, assoc))
+        decode_ms = (time.perf_counter() - t0) / n * 1e3
+        if [ts for ts, _, _ in frames] != stamps:
+            raise AssertionError("dataset: the loader's timestamps are not the fixture's")
+        system_b = SlamSystem(Settings.from_yaml(os.path.join(root, "settings.yaml"), "rgbd"),
+                              "rgbd", device="cuda")
+        drv = LiveDriver(system_b, "rgbd")
+        track_rgbd, track_s = system_b.track_rgbd, []
+
+        def timed_track(*a):
+            t = time.perf_counter()
+            out = track_rgbd(*a)
+            track_s.append(time.perf_counter() - t)
+            return out
+
+        system_b.track_rgbd = timed_track
+        rng = np.random.default_rng(0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, (ts, image, depth) in enumerate(frames):
+            jit = float(rng.uniform(0, TUM_JITTER_S))
+            if i % 2:
+                drv.feed_depth(depth, ts + jit)
+                drv.feed_rgb(image, ts)
+            else:
+                drv.feed_rgb(image, ts)
+                drv.feed_depth(depth, ts + jit)
+        feed_s = time.perf_counter() - t0
+        drv.shutdown(os.path.join(root, "KeyFrameTrajectory_live.txt"))
+        torch.cuda.synchronize()
+        b_secs = time.perf_counter() - t0
+        del system_b.track_rgbd
+        launches_b = dict(kernels.LAUNCHES)
+        poses_a, poses_b = system_a.poses_wc(), system_b.poses_wc()
+        phase("dataset", f"(B) LiveDriver: {drv.frames} pairs, {drv.dropped} dropped, launches "
+              f"{launches_b}; {card}: {n / b_secs:.2f} frames/s from decoded frames, PNG "
+              f"decode {decode_ms:.2f} ms/frame (utils/datasets, the host), the driver's own "
+              f"host time {(feed_s - sum(track_s)) / n * 1e3:.3f} ms/frame (feeds and sync "
+              f"around track_rgbd)")
+        if drv.frames != n or drv.dropped:
+            raise AssertionError(f"dataset (B): {drv.frames} pairs, {drv.dropped} dropped")
+        if not np.array_equal(poses_a, poses_b) or launches_a != launches_b:
+            raise AssertionError(f"dataset (B): the live run differs from (A): max |dT| "
+                                 f"{float(np.abs(poses_a - poses_b).max())}, launches "
+                                 f"{launches_a} / {launches_b}")
+        phase("dataset", "(B) the live run repeats (A) bit for bit, with the same launches")
+
+        # Checkpoint -------------------------------------------------------------------
+        m = system_a.map
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_map(m, map_path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_map(map_path, "cuda")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        for name in MapState._fields:
+            a, b = getattr(m, name), getattr(loaded, name)
+            if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"checkpoint: {name} differs after save_map / load_map "
+                                     f"({a.dtype} {a.device} / {b.dtype} {b.device})")
+        phase("dataset", f"{card}: checkpoint: save_map {save_ms:.1f} ms, load_map to the card "
+              f"{load_ms:.1f} ms, {os.path.getsize(map_path)} bytes (npz, compressed; "
+              f"{sum(t.numel() * t.element_size() for t in m)} in memory); every field "
+              f"torch.equal to the map it came from")
+
+        # AR: the plane on the card, rerun on the CPU with the card's samples -----------
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        samples = draw_samples(m.pt_valid, 256, 3, gen)
+        t0 = time.perf_counter()
+        plane = ar.fit_plane_ransac(m.pt_pos, m.pt_valid, samples=samples,
+                                    inlier_th=AR_INLIER_TH)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) * 1e3
+        cpu = ar.fit_plane_ransac(m.pt_pos.cpu(), m.pt_valid.cpu(), samples=samples.cpu(),
+                                  inlier_th=AR_INLIER_TH)
+        normal, point = plane.normal.cpu(), plane.point.cpu()
+        d_normal = min(float((normal - cpu.normal).abs().max()),
+                       float((normal + cpu.normal).abs().max()))
+        d_point = float((point - cpu.point).abs().max())
+        phase("dataset", f"AR: plane on {int(m.pt_valid.sum())} map points, "
+              f"{int(plane.n_inliers)} inliers (ok {bool(plane.ok)}), normal "
+              f"{normal.numpy().round(4).tolist()}, {ar_ms:.2f} ms on the card; the CPU rerun "
+              f"with the card's samples: {int(cpu.n_inliers)} inliers, normal within "
+              f"{d_normal:.2e} (up to sign), centroid within {d_point:.2e}")
+        if int(plane.n_inliers) != int(cpu.n_inliers) or d_normal > AR_TOL or d_point > AR_TOL:
+            raise AssertionError("AR: the card's plane differs from its CPU rerun")
+        png_dir = os.path.join(root, "png")
+        os.makedirs(png_dir)
+        last = frames[-1][1]
+        ar.draw_ar_overlay(last, system_a.tracker.last_T, system_a.tracker.cam, plane,
+                           os.path.join(png_dir, "ar.png"), size=0.2)
+        f = system_a.tracker.last_frame
+        valid = f.valid.cpu().numpy()
+        viewer.draw_frame(last, f.xy.cpu().numpy()[valid],
+                          (system_a.tracker.last_bindings.cpu().numpy() >= 0)[valid],
+                          os.path.join(png_dir, "frame.png"), state_text="OK")
+        t0 = time.perf_counter()
+        viewer.draw_map(m, os.path.join(png_dir, "map.png"), trajectory=poses_a)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        pngs = {p: os.path.getsize(os.path.join(png_dir, p)) for p in sorted(os.listdir(png_dir))}
+        pngs.update({p: os.path.getsize(os.path.join(out, p)) for p in snaps})
+        phase("dataset", f"PNGs ({'matplotlib' if viewer._HAS_MPL else 'PIL: no matplotlib'}"
+              f"), bytes: {pngs}; {card}: a map snapshot (draw_map, its reads of the map "
+              f"included) {snap_ms:.1f} ms")
+        if len(pngs) != 3 + len(snaps) or min(pngs.values()) < 1000:
+            raise AssertionError(f"dataset: PNGs {pngs}")
+    for name in KERNELS:
+        if not launches_a[name]:
+            raise AssertionError(f"dataset (A): {name} was not launched")
+    return {name: {"cli": launches_a[name], "live": launches_b[name]} for name in KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -3475,7 +3776,7 @@ def main() -> int:
 
 
 def run_phases(card, kind, t_start, sequences) -> int:
-    """Phases 2-17 and the result lines; ``sequences`` holds the futures of
+    """Phases 2-18 and the result lines; ``sequences`` holds the futures of
     the rendered sequences."""
     import numpy as np
     import torch
@@ -3749,7 +4050,7 @@ def run_phases(card, kind, t_start, sequences) -> int:
     off_sys = run_slice(settings, seq, "cuda", 6)[0]
     profile_window(off_sys, seq, range(6, 6 + PROFILE_FRAMES), card, "mapping off")
     time_layers(tracking_layers(off_sys, torch.as_tensor(seq.images[11], device="cuda"),
-                                torch.as_tensor(seq.depths[11], device="cuda")), card, n=3)
+                                torch.as_tensor(seq.depths[11], device="cuda")), card, n=1)
 
     # Mapping on: a timed pass with each mapping pass timed on its own, and
     # a profile window that ends on the last keyframe, out of the timing.
@@ -3827,6 +4128,10 @@ def run_phases(card, kind, t_start, sequences) -> int:
     mono_loop_carried, mono_loop_launches = mono_loop_check(card, sequences["mono_loop"])
 
     phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+    # 18. a TUM RGB-D sequence on disk through the dataset CLI and LiveDriver ----
+    dataset_launches = dataset_check(card, settings, seq)
+
+    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
 
     # The camera count of the main path's local-BA window (its last keyframe).
     from orbslam2_tpu_torch.models.local_mapping import _bucket
@@ -3888,6 +4193,7 @@ def run_phases(card, kind, t_start, sequences) -> int:
         row["mono_driver_launches"] = mono_driver_launches[row["name"]]
         row["mono_loop_launches"] = {"carried": mono_loop_carried[row["name"]],
                                      "from_frame_0": mono_loop_launches[row["name"]]}
+        row["dataset_launches"] = dataset_launches[row["name"]]
         row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
         row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])

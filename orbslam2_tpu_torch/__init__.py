@@ -8,12 +8,14 @@ sources under ``csrc/``, built and bound by ``kernels.py``; every wrapper
 launches its kernel for a CUDA tensor and takes its plain PyTorch version
 for a CPU tensor.
 
-Ported so far: RGB-D and stereo tracking with keyframe insertion through
-the per-frame, pipelined and chunked drivers; local mapping, in line or
-in a worker thread on map snapshots (async mapping); place recognition
-with relocalization; loop closing; localization-only mode; and the
-System lifecycle (``reset``, ``shutdown``).  Mono, the dataset drivers
-and the multi-device solvers are not ported yet (see ROADMAP.md).
+Ported so far: mono, stereo and RGB-D tracking with keyframe insertion
+through the per-frame, pipelined and chunked drivers; local mapping, in
+line or in a worker thread on map snapshots (async mapping); place
+recognition with relocalization; loop closing; localization-only mode;
+the System lifecycle (``reset``, ``shutdown``); and the drivers and
+utilities: dataset loaders, map checkpoints, the live and AR drivers and
+the viewer (``utils/``), with the ``examples/torch_*.py`` CLIs.  The
+multi-device solvers are not ported yet (see ROADMAP.md).
 """
 
 __version__ = "0.1.0"

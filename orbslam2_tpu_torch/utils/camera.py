@@ -1,8 +1,9 @@
 """Pinhole camera model with radial-tangential distortion.
 
 Port of ``orbslam2_tpu/utils/camera.py``: ``Frame::UndistortKeyPoints``
-(src/Frame.cc:≈420), ``Frame::UnprojectStereo`` (src/Frame.cc:≈630) and the
-projection used by the matchers and the pose optimizer.  Functions take
+(src/Frame.cc:≈420), ``Frame::UnprojectStereo`` (src/Frame.cc:≈630), the
+projection used by the matchers and the pose optimizer, its distorted and
+stereo variants.  Functions take
 torch tensors, batched over leading dims.
 """
 
@@ -67,13 +68,40 @@ def make_camera(fx, fy, cx, cy, dist=None, bf=0.0, width=640, height=480) -> Cam
     )
 
 
-def project(cam: CameraModel, p_cam: torch.Tensor) -> torch.Tensor:
-    """Camera-frame points (..., 3) -> undistorted pixels (..., 2)."""
+def distort_normalized(cam: CameraModel, xn: torch.Tensor) -> torch.Tensor:
+    """Radial-tangential distortion of normalized coordinates (..., 2)."""
+    k1, k2, p1, p2, k3 = cam.dist
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xy = x * y
+    xd = x * radial + 2.0 * p1 * xy + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * xy
+    return torch.stack([xd, yd], dim=-1)
+
+
+def project(cam: CameraModel, p_cam: torch.Tensor, distort: bool = False) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> pixels (..., 2): undistorted by
+    default (the system works on undistorted keypoints after extraction),
+    with the lens distortion applied for ``distort=True``."""
     z = p_cam[..., 2]
     inv_z = 1.0 / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    if distort:
+        xn = distort_normalized(cam, p_cam[..., :2] * inv_z[..., None])
+        return torch.stack([cam.fx * xn[..., 0] + cam.cx, cam.fy * xn[..., 1] + cam.cy],
+                           dim=-1)
     u = cam.fx * (p_cam[..., 0] * inv_z) + cam.cx
     v = cam.fy * (p_cam[..., 1] * inv_z) + cam.cy
     return torch.stack([u, v], dim=-1)
+
+
+def project_stereo(cam: CameraModel, p_cam: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3) [u, v, u_right], u_right = u - bf / z."""
+    uv = project(cam, p_cam)
+    z = p_cam[..., 2]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    ur = uv[..., 0] - cam.bf * inv_z
+    return torch.cat([uv, ur[..., None]], dim=-1)
 
 
 def backproject(cam: CameraModel, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

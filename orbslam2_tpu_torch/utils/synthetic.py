@@ -480,6 +480,23 @@ def loop_poses(n_frames: int, circle_radius: float, extra_turns: float = 1.25) -
     return poses.astype(np.float32)
 
 
+def render_loop_frame(world, poses, f: int, cam: CameraModel, seed: int, with_depth: bool,
+                      stereo_baseline: float, **room):
+    """Frame ``f`` of ``make_loop_sequence``: the image (and depth), or the
+    (2, H, W) stereo pair, each rendered with its own seed, so that frames
+    render alike one by one or in any split over processes."""
+    if stereo_baseline > 0.0:
+        right = poses[f].copy()
+        right[:3, 3] = right[:3, 3] + right[:3, :3] @ np.array(
+            [stereo_baseline, 0, 0], np.float32
+        )
+        im_l = render_room_frame(world, poses[f], cam, seed=seed + 300 + f, **room)
+        im_r = render_room_frame(world, right, cam, seed=seed + 7000 + f, **room)
+        return np.stack([im_l, im_r])
+    return render_room_frame(world, poses[f], cam, seed=seed + 300 + f,
+                             with_depth=with_depth, **room)
+
+
 def make_loop_sequence(
     cam: CameraModel,
     n_frames: int = 48,
@@ -504,21 +521,8 @@ def make_loop_sequence(
     poses = loop_poses(n_frames, circle_radius, extra_turns)
     frames, depths = [], ([] if with_depth else None)
     for f in range(n_frames):
-        if stereo_baseline > 0.0:
-            right = poses[f].copy()
-            right[:3, 3] = right[:3, 3] + right[:3, :3] @ np.array(
-                [stereo_baseline, 0, 0], np.float32
-            )
-            im_l = render_room_frame(world, poses[f], cam,
-                                     seed=seed + 300 + f, **kwargs)
-            im_r = render_room_frame(world, right, cam,
-                                     seed=seed + 7000 + f, **kwargs)
-            frames.append(np.stack([im_l, im_r]))
-            continue
-        out = render_room_frame(
-            world, poses[f], cam, seed=seed + 300 + f,
-            with_depth=with_depth, **kwargs
-        )
+        out = render_loop_frame(world, poses, f, cam, seed, with_depth, stereo_baseline,
+                                **kwargs)
         if with_depth:
             frames.append(out[0])
             depths.append(out[1])

@@ -63,7 +63,14 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.models.loop_closing",
     "orbslam2_tpu_torch.models.async_pipeline",
     "orbslam2_tpu_torch.models.system",
+    "orbslam2_tpu_torch.utils.datasets",
+    "orbslam2_tpu_torch.utils.checkpoint",
+    "orbslam2_tpu_torch.utils.viewer",
+    "orbslam2_tpu_torch.utils.live",
+    "orbslam2_tpu_torch.utils.ar",
 ]
+
+TORCH_EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 
 
 def _settings():
@@ -89,6 +96,66 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_torch_examples_import_nothing_of_jax():
+    """No ``examples/torch_*.py`` imports jax or the JAX package, at the top
+    or inside a function (the imports of each file's syntax tree), and each
+    loads, with every port module, where ``import jax`` fails."""
+    import ast
+
+    assert [p.name for p in TORCH_EXAMPLES] == [
+        "torch_ar_demo.py", "torch_eval_mono_circle.py", "torch_live_demo.py",
+        "torch_run_dataset.py", "torch_run_matrix.py", "torch_run_reference_scale.py",
+        "torch_run_synthetic.py"]
+    for path in TORCH_EXAMPLES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "orbslam2_tpu"), (path, name)
+    code = (
+        "import sys, importlib.util; sys.modules['jax'] = None\n"
+        f"for p in {[str(p) for p in TORCH_EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('m', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", TORCH_EXAMPLES, ids=lambda p: p.stem)
+def test_torch_examples_default_to_the_card(path):
+    """Each CLI has ``main(argv=None)`` and a ``--device`` option whose
+    default is "cuda"."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    assert main and [a.arg for a in main[0].args.args] == ["argv"]
+    assert isinstance(main[0].args.defaults[0], ast.Constant)
+    assert main[0].args.defaults[0].value is None
+    defaults = [kw.value.value for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and n.args and isinstance(n.args[0], ast.Constant) and n.args[0].value == "--device"
+                for kw in n.keywords if kw.arg == "default"]
+    assert defaults == ["cuda"]
+
+
+def test_cli_default_device_never_falls_back_to_the_cpu():
+    """With no card, a CLI run with the default device fails where torch
+    first touches CUDA; it never runs on the CPU."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("m", REPO / "examples" / "torch_live_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises((RuntimeError, AssertionError)):
+        demo.main(["--frames", "1"])
 
 
 def test_tf32_is_off():

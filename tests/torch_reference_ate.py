@@ -8,6 +8,7 @@
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench [--chunk N] [--async] [--frames N]
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono [--seed S] [--frames N] [--chunk N]
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --mono-loop
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --tum
 
 Runs the JAX tracker with its LocalMapper (loop closing and the BoW
 database off), the configuration ``chip_smoke.py`` drives the port in, and
@@ -88,6 +89,17 @@ the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
   ``save=`` (``tools/torch_mono_loop_state.py``) also writes the state just
   before the firing keyframe's ``process_keyframe`` to an ``.npz``.
   About 9 minutes on the CPU.
+* ``--tum``: ``chip_smoke.py``'s ``dataset`` phase: the RGB-D sequence above
+  written in the TUM RGB-D layout by ``chip_smoke.write_tum_fixture`` (8-bit
+  images, 16-bit depth at DepthMapFactor 5000, the bench settings as a
+  reference-format YAML) and read back by the reference's loaders
+  (``utils/datasets.iter_tum_rgbd``) into the reference's
+  ``SlamSystem(settings, "rgbd")`` with its defaults (synchronous mapping,
+  loop closing on), as ``examples/run_dataset.py`` runs it.  Prints the ATE
+  that ``examples/evaluate.py`` gives the written CameraTrajectory.txt
+  against the written groundtruth.txt, the pairs, the keyframes, the loop
+  edges and the per-frame states.  ``chip_smoke.py``'s ``dataset`` limit
+  comes from it.
 """
 
 import dataclasses
@@ -517,8 +529,51 @@ def mono_loop_main(save=None):
     return result
 
 
+def tum_main():
+    import importlib.util
+    import tempfile
+
+    import chip_smoke
+    from orbslam2_tpu.models.system import Sensor, SlamSystem
+    from orbslam2_tpu.utils import datasets
+    from orbslam2_tpu_torch.utils import synthetic as port_synthetic
+
+    s = smoke_settings()
+    # The port's renderer (numpy, the reference's copy) and writer: the
+    # very files chip_smoke.py writes.
+    seq = port_synthetic.make_sequence(s.camera_model(), n_frames=N_FRAMES, n_points=1500,
+                                       with_depth=True, seed=0, radius=0.25, forward=0.5)
+    spec = importlib.util.spec_from_file_location(
+        "evaluate", str(Path(__file__).resolve().parent.parent / "examples" / "evaluate.py"))
+    ev = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ev)
+    with tempfile.TemporaryDirectory() as root:
+        chip_smoke.write_tum_fixture(seq, root, chip_smoke.bench_settings())
+        settings = Settings.from_yaml(str(Path(root) / "settings.yaml"), sensor="rgbd")
+        system = SlamSystem(settings, Sensor.RGBD)
+        states = []
+        for ts, image, depth in datasets.iter_tum_rgbd(root, str(Path(root) / "associations.txt")):
+            system.track_rgbd(image, depth, ts)
+            states.append(int(system.tracking_state()))
+        system.shutdown()
+        traj = str(Path(root) / "CameraTrajectory.txt")
+        system.save_trajectory_tum(traj)
+        res = ev.evaluate_files(traj, str(Path(root) / "groundtruth.txt"), fmt="tum")
+    tr = system.tracker
+    print(json.dumps({
+        "ate_m": float(res["ate_rmse_m"]),
+        "pairs": res["pairs"],
+        "keyframes_created": tr.metrics["keyframes_created"],
+        "loop_edges": [(int(a), int(b)) for a, b, _ in system.loop_closer.loop_edges],
+        "frames_lost": tr.metrics["frames_lost"],
+        "states": states,
+    }))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
+    if "--tum" in sys.argv[1:]:
+        return tum_main()
     if "--mono-loop" in sys.argv[1:]:
         return mono_loop_main()
     if "--mono" in sys.argv[1:]:
