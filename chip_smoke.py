@@ -16,6 +16,8 @@ on failure (the script then exits non-zero and prints no result):
               noise, a ragged (33x129) and a tiny (7x7) image each alone and
               mixed into one call, with the extractor's threshold at 0 and at
               7; CUDA-event medians of 20 calls and device time per launch
+              (its lines print after phase 6's: the stereo frame is rendered
+              beside phases 4-6)
   4. K2       packed-Hamming kernel against its plain version (torch.equal)
               at the tracker's shapes, ragged ones and loop closing's 2048
               candidate points x 1024 and 2048 features
@@ -92,8 +94,8 @@ on failure (the script then exits non-zero and prints no result):
               launches, host syncs and candidates, and the device ms of
               those from the reference's frame on (the profiler costs
               seconds a call)
- 13. localization  frames 0-11 of phase 8's sequence with mapping, then
-              ``activate_localization_mode()`` and frames 12-23: every frame
+ 13. localization  frames 0-7 of phase 8's sequence with mapping, then
+              ``activate_localization_mode()`` and frames 8-15: every frame
               OK, no keyframe or point added
  14. loop     the reference's loop test (``make_loop_sequence(n_frames=84,
               circle_radius=1.5, seed=5)``, local BA and fuse off) at the
@@ -117,7 +119,7 @@ on failure (the script then exits non-zero and prints no result):
  15. drivers  (a) ``pipeline=True`` on phase 8's first 12 frames, held against
               the same run on the CPU through the frame after the first
               keyframe; (b) ``chunk=8`` with synchronous mapping and loop
-              closing on the first 32 of bench.py's 96 frames
+              closing on the first 24 of bench.py's 96 frames
               (``BENCH_SEQ``), timed:
               every frame OK, ATE within DRIVERS_LIMIT_ATE_M
               (the reference's chunk-8 run + 3 mm), every kernel launched;
@@ -152,8 +154,9 @@ on failure (the script then exits non-zero and prints no result):
               bit-identical to the first; then mono (a) pipelined and (d)
               localization-only from frame 10, each held against the same
               run on the CPU drawing the card's RANSAC samples (states and
-              paths equal, poses within POSE_TOL_M / POSE_TOL_RAD; (d) the
-              map frozen), (b) chunk 8 with synchronous mapping twice, bit
+              paths equal, poses within POSE_TOL_M / POSE_TOL_RAD; (a)
+              through the frame after the first keyframe; (d) the map
+              frozen), (b) chunk 8 with synchronous mapping twice, bit
               for bit, ATE within the reference's chunk-8 run + 3 mm, and
               (c) chunk 8 with async mapping, its adoptions rerun on the
               CPU (AdoptWitness); every frame from initialization on OK,
@@ -168,7 +171,9 @@ on failure (the script then exits non-zero and prints no result):
               reference's OptimizeSim3 (the port keeps that scale in the
               polish), the call rerun on the CPU (LoopWitness), K2/K4/K5
               counted inside the steps; (b) 280 frames from frame 0, one
-              timed pass after phase 16: at most 5% lost, an edge spanning
+              timed pass after phase 16, in a process of its own beside
+              (a) and phases 18-20 (whose host times are so taken beside
+              it; its launches are that process's): at most 5% lost, an edge spanning
               more than half the keyframes, Sim3-aligned ATE below 0.7 m
               (the test's) and within MONO_LOOP_LIMIT_ATE_M, the accepted
               verification rerun on the CPU (FiringWitness: gate scalars
@@ -195,6 +200,27 @@ on failure (the script then exits non-zero and prints no result):
               the AR overlay, the frame and the viewer's snapshots written
               as PNGs; K1-K5 launched in (A); frames/s through the loaders,
               PNG decode ms, checkpoint ms and bytes
+ 19. unfused  phase 8's mapping run with ``tracker.use_fused = False`` (the
+              Track() chain step by step on the host): every frame OK, ATE
+              within UNFUSED_LIMIT_ATE_M (the reference's unfused run + 3
+              mm, from ``torch_reference_ate.py --unfused``), the fused
+              run's keyframes and frames lost and |dATE| < 0.02 m against
+              it (the reference's gate), K1 once a frame, K2 and K3
+              launched, K4 15 and K5 19 per keyframe; frames 0-3 against
+              the same run on the CPU; frames/s and host syncs per frame
+ 20. mesh     two ranks (processes) on the one card joined by gloo (NCCL
+              refuses two ranks on one device; gloo gathers the CUDA
+              tensors through the host): on each rank the sharded local BA
+              at the bench window (C = 16, N = 1024) and the joint GBA at C
+              = 128, N = 1024 (a seeded map of 100 keyframes) equal to the
+              single-device solvers on the card (``torch.equal``), K4 and K5
+              launched on every rank; the distributed essential graph on
+              that map within 2e-3 of the single-device solver (the
+              reference's limit); ``SlamSystem(rgbd, mesh=...)`` on 12 of
+              phase 8's frames equal bit for bit to the one-process run
+              (and so the ranks to each other), K1-K5 launched; wall ms per
+              LM iteration on one rank and on two, and the joint GBA's
+              collectives (calls, ms, MB)
 
 Phases 7-10 and 12-13 build their systems with loop closing off, as
 before it was ported; phase 14 runs it.  Phases 7-10 also report the keyframe database's entries: every system
@@ -204,7 +230,8 @@ it runs and read just after.  The last lines are the kernel table as one JSON ob
 its launches in every path, ``driver_launches`` those of phase 15,
 ``mono_launches`` those of phase 16's first pass, ``mono_driver_launches``
 its drivers', ``mono_loop_launches`` phase 17's, ``dataset_launches``
-phase 18's), the
+phase 18's, ``unfused_launches`` phase 19's, ``mesh_launches`` phase 20's
+per rank), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -434,12 +461,15 @@ def bench_settings():
     )
 
 
-def make_system(settings, device, mapping, sensor="rgbd", **kw):
-    """A system with loop closing off; ``kw`` goes to ``SlamSystem``."""
+def make_system(settings, device, mapping, sensor="rgbd", unfused=False, **kw):
+    """A system with loop closing off; ``kw`` goes to ``SlamSystem``;
+    ``unfused`` sets its tracker's ``use_fused`` False."""
     from orbslam2_tpu_torch.models.system import SlamSystem
 
-    return SlamSystem(settings, sensor, enable_mapping=mapping, enable_loop_closing=False,
-                      device=device, **kw)
+    system = SlamSystem(settings, sensor, enable_mapping=mapping, enable_loop_closing=False,
+                        device=device, **kw)
+    system.tracker.use_fused = not unfused
+    return system
 
 
 def frame_inputs(seq, frames, device):
@@ -862,9 +892,9 @@ def profile_window(system, seq, frames, card, label, stages=False):
     originals = {tag: getattr(kernels, name) for tag, (name, _, _) in WRAPPERS.items()}
 
     def recording(tag):
-        def call(*args):
+        def call(*args, **kw):
             calls[tag].append(args)
-            return originals[tag](*args)
+            return originals[tag](*args, **kw)
         return call
 
     for tag, (name, _, _) in WRAPPERS.items():
@@ -1327,9 +1357,11 @@ RELOC_LIMIT_ATE_M = RELOC_REF_ATE_M + 0.05
 # (tests/test_torch_reloc_slice.py, POS_TOL_M and ROT_TOL_RAD).
 RELOC_POSE_TOL_M = 2e-4
 RELOC_POSE_TOL_RAD = 2e-4
-# Localization-only mode on the main-path sequence: frames 0-11 with
-# mapping, then 12-23 in localization mode.
-N_LOC_SLAM = 12
+# Localization-only mode on the main-path sequence: frames 0-7 with
+# mapping, then 8-15 in localization mode (12 and 12 until phases 19-20
+# needed the room).
+N_LOC_SLAM = 8
+N_LOC_FRAMES = 16
 
 
 def orbvoc_shaped_vocabulary(seed: int):
@@ -1759,9 +1791,10 @@ def reloc_check(settings, card, seq_future):
 
 
 def localization_check(settings, seq, card):
-    """Frames 0-11 of the main path with mapping, then
-    activate_localization_mode() and frames 12-23: every frame OK, no
-    keyframe or point added.  Returns the launch counts of the whole run."""
+    """Frames 0 to N_LOC_SLAM - 1 of the main path with mapping, then
+    activate_localization_mode() and the frames to N_LOC_FRAMES - 1: every
+    frame OK, no keyframe or point added.  Returns the launch counts of the
+    whole run."""
     import torch
 
     from orbslam2_tpu_torch import kernels
@@ -1778,14 +1811,14 @@ def localization_check(settings, seq, card):
     system.activate_localization_mode()
     before = system.metrics()
     t0 = time.perf_counter()
-    loc_states = drive(system, seq, "cuda", range(N_LOC_SLAM, N_FRAMES), on_frame)[0]
+    loc_states = drive(system, seq, "cuda", range(N_LOC_SLAM, N_LOC_FRAMES), on_frame)[0]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     after = system.metrics()
     phase("localization", f"{card}: frames 0-{N_LOC_SLAM - 1} with mapping, "
-          f"{N_FRAMES - N_LOC_SLAM} in localization mode at "
-          f"{(N_FRAMES - N_LOC_SLAM) / secs:.2f} frames/s: states {states + loc_states}, "
+          f"{N_LOC_FRAMES - N_LOC_SLAM} in localization mode at "
+          f"{(N_LOC_FRAMES - N_LOC_SLAM) / secs:.2f} frames/s: states {states + loc_states}, "
           f"paths {dict(collections.Counter(paths[N_LOC_SLAM:]))} in localization mode, "
           f"keyframes {before['n_keyframes']} -> {after['n_keyframes']}, points "
           f"{before['n_points']} -> {after['n_points']}, launches {launches}")
@@ -2336,28 +2369,29 @@ def loop_check(card, seq_future):
 
 # bench.py's sequence (bench.py:55-67) and chunk (bench.py:42), at the bench
 # settings; phase 15 (b) and (c) feed its first BENCH_FRAMES frames (a
-# depth cut: 48 to make room for phase 17, 32 for phase 18).  The JAX
-# reference's SlamSystem(settings, "rgbd", chunk=8, enable_loop_closing=True)
-# with synchronous mapping tracks all 32, creates 4 keyframes, closes no
-# loop and reaches ATE DRIVERS_REF_ATE_M (`JAX_PLATFORMS=cpu python
-# tests/torch_reference_ate.py --bench --chunk 8 --frames 32`, run on the
-# CPU; over 48 frames 0.010742452721481884 m and 7 keyframes, over all 96
+# depth cut: 48 to make room for phase 17, 32 for phase 18, 24 for phases
+# 19-20).  The JAX reference's SlamSystem(settings, "rgbd", chunk=8,
+# enable_loop_closing=True) with synchronous mapping tracks all 24, creates
+# 4 keyframes, closes no loop and reaches ATE DRIVERS_REF_ATE_M
+# (`JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --bench --chunk 8
+# --frames 24`, run on the CPU; over 32 frames 0.005490924277531817 m and 4
+# keyframes, over 48 0.010742452721481884 m and 7, over all 96
 # 0.015167599662350487 m and 21); the
 # chunked phase may lie 3 mm above it, as the mapping phase may, and
 # bench.py's constructor (async mapping, whose adoption points depend on
 # wall-clock time) 1 cm above the chunked run.
 BENCH_SEQ = dict(n_frames=96, n_points=1500, with_depth=True, seed=0, radius=0.35, forward=2.0)
-BENCH_FRAMES = 32
+BENCH_FRAMES = 24
 BENCH_CHUNK = 8
-DRIVERS_REF_ATE_M = 0.005490924277531817
+DRIVERS_REF_ATE_M = 0.004890211811261175
 DRIVERS_LIMIT_ATE_M = DRIVERS_REF_ATE_M + 0.003
 ASYNC_ATE_MARGIN_M = 0.01
 # AdoptWitness: the first adoptions of the async pass, each rerun on the CPU.
 ADOPT_WITNESSED = 3
-# Depth cut to make room for phase 17: (a) runs the first 12 of the 24
+# Depth cut to make room for phase 17: (a) runs the first 12 of phase 7's
 # frames (the CPU comparison needs the frame after the first keyframe); and
-# for phase 18, (b) and (c) run 32 frames (were 48) and (c) runs without
-# its warm-up pass.
+# for phases 18-20, (b) and (c) run 24 frames (were 48, then 32) and (c)
+# runs without its warm-up pass.
 PIPELINE_FRAMES = 12
 ADOPT_FLOAT_TOL = 1e-5
 FPS_METRIC = "slam_pipeline_fps_640x480_1000feat_kf_on"
@@ -3171,12 +3205,61 @@ def mono_loop_check(card, seq_future):
     Sim3-aligned ATE below 0.7 m), the ATE within MONO_LOOP_LIMIT_ATE_M,
     and each accepted verification rerun on the CPU (FiringWitness); the
     firing frame, where the time goes, the loop steps' times and launches
-    and the peak memory.  Returns (a)'s and (b)'s launches."""
+    and the peak memory.  (b) runs in a process of its own, started first,
+    beside (a) and phases 18-20 (its time, a third of the script's, is
+    spent driving the card from the host).  Returns (a)'s launches and
+    (b)'s process, for ``mono_loop_b_result``."""
     settings = mono_loop_settings()
-    arrays, meta = mono_loop_state()
-    a_launches = mono_loop_carried(card, settings, arrays, meta)
     seq = rendered(seq_future, "mono_loop", settings)
-    return a_launches, mono_loop_from_frame_0(card, settings, arrays, meta, seq)
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_mono_loop_b_process, args=(send, card, T_START, seq))
+    proc.start()
+    send.close()
+    try:
+        arrays, meta = mono_loop_state()
+        return mono_loop_carried(card, settings, arrays, meta), (proc, recv)
+    except BaseException:
+        proc.terminate()
+        raise
+
+
+def _mono_loop_b_process(conn, card, t_start, seq):
+    """Phase 17(b) in a process of its own: the built kernels loaded,
+    ``mono_loop_from_frame_0`` run; sends back its launches (this
+    process's counts) or the error."""
+    global T_START
+    T_START = t_start
+    try:
+        import torch
+
+        from orbslam2_tpu_torch import kernels
+
+        torch.set_num_threads(2)
+        torch.cuda.set_device(0)
+        kernels.load()
+        settings = mono_loop_settings()
+        arrays, meta = mono_loop_state()
+        conn.send(("ok", mono_loop_from_frame_0(card, settings, arrays, meta, seq)))
+    except BaseException:
+        import traceback
+
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def mono_loop_b_result(child):
+    """Wait for phase 17(b)'s process; returns its launches or raises."""
+    proc, recv = child
+    try:
+        status, out = recv.recv()
+    except EOFError:
+        status, out = "error", f"its process ended with code {proc.exitcode} and no result"
+    proc.join()
+    if status != "ok":
+        raise AssertionError("mono loop (b): " + out)
+    return out
 
 
 class FiringWitness:
@@ -3747,6 +3830,320 @@ def dataset_check(card, settings, seq):
     return {name: {"cli": launches_a[name], "live": launches_b[name]} for name in KERNELS}
 
 
+# -- 19. the unfused tracker -------------------------------------------------
+
+# ``torch_reference_ate.py --unfused``: the reference's step-by-step
+# tracker on phase 8's configuration, 24 frames.
+UNFUSED_REF_ATE_M = 0.012153246008116472
+UNFUSED_LIMIT_ATE_M = UNFUSED_REF_ATE_M + 0.003
+UNFUSED_FUSED_DATE_M = 0.02  # the reference's gate (tests/test_track_fused.py)
+
+
+def unfused_check(card, settings, seq, fused_run, fused_lost):
+    """Phase 19: phase 8's mapping run with ``tracker.use_fused = False``
+    (the Track() chain step by step on the host): every frame OK, ATE within
+    UNFUSED_LIMIT_ATE_M, the fused run's keyframes and frames lost and
+    |dATE| < UNFUSED_FUSED_DATE_M against it, K1 once a frame, K2-K5
+    launched (K4 15 and K5 19 per keyframe); frames 0-3 against the same
+    run on the CPU.  Returns the launches."""
+    from orbslam2_tpu_torch import kernels
+
+    system = make_system(settings, "cuda", mapping=True, unfused=True)
+    kernels.reset_launch_counts()
+    states, secs, poses_cw, _ = drive(system, seq, "cuda", range(N_FRAMES), keep_poses=N_CPU)
+    launches = dict(kernels.LAUNCHES)
+    _, ate, kc, n_kf, n_pts = run_summary(system, seq)
+    _, f_ate, f_kc, _, _ = fused_run
+    lost = system.tracker.metrics["frames_lost"]
+    syncs = system.tracker.metrics["host_syncs"] / N_FRAMES
+    phase("unfused", f"{card}: {sum(s == 1 for s in states)}/{N_FRAMES} frames OK, ATE "
+          f"{ate:.6f} m (the reference's unfused {UNFUSED_REF_ATE_M:.6f} m, limit "
+          f"{UNFUSED_LIMIT_ATE_M:.6f} m; the fused run {f_ate:.6f} m, |dATE| "
+          f"{abs(ate - f_ate):.6f} m), {kc} keyframes created (fused {f_kc}), {lost} frames "
+          f"lost (fused {fused_lost}), {n_kf} valid, {n_pts} points; {N_FRAMES / secs:.2f} "
+          f"frames/s, {syncs:.2f} host syncs/frame (tracker's count); launches {launches}")
+    if any(s != 1 for s in states):
+        raise AssertionError(f"unfused: frames not OK: {states}")
+    if not ate <= UNFUSED_LIMIT_ATE_M or not abs(ate - f_ate) < UNFUSED_FUSED_DATE_M:
+        raise AssertionError(f"unfused: ATE {ate} m (limit {UNFUSED_LIMIT_ATE_M}, fused {f_ate})")
+    if kc != f_kc or lost != fused_lost:
+        raise AssertionError(f"unfused: {kc} keyframes and {lost} lost, fused {f_kc} and "
+                             f"{fused_lost}")
+    if launches["fast_score_nms"] != N_FRAMES:
+        raise AssertionError(f"unfused: K1 launched {launches['fast_score_nms']} times, not "
+                             f"once per frame ({N_FRAMES})")
+    if (min(launches["hamming_matrix"], launches["projection_best2"]) <= 0
+            or launches["ba_normal_equations"] != 15 * kc or launches["ba_chi2"] != 19 * kc):
+        raise AssertionError(f"unfused: launches {launches} for {kc} keyframes")
+    dt, dr, _ = compare_with_cpu(settings, seq, poses_cw, states, mapping=True, unfused=True)
+    phase("unfused", f"frames 0-{N_CPU - 1} CPU vs GPU: states equal, max |dt| {dt:.3e} m, "
+          f"max rotation {dr:.3e} rad")
+    return launches
+
+
+# -- 20. the mesh ---------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_SLAM_FRAMES = 12
+MESH_GBA_KF = 100         # valid keyframes of the joint GBA's map: C = 128
+MESH_PG_TOL = 2e-3        # the reference's limit (tests/test_parallel.py)
+
+
+def mesh_map(device, n_kf=MESH_GBA_KF, K=128, N=1024, P=8192, seed=3):
+    """A map of ``n_kf`` keyframes (pool of K) on a line of sight, each
+    observing N of P points with 0.5 px noise, poses and points perturbed
+    (``tests/test_parallel.make_slam_map``'s recipe at the bench's
+    widths)."""
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch.models import map_state as ms
+    from orbslam2_tpu_torch.solvers.lie import se3_exp
+
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-6, 6, P), rng.uniform(-3, 3, P), rng.uniform(6, 12, P)],
+                 -1).astype(np.float32)
+    xi = np.concatenate([np.stack([0.05 * np.arange(n_kf), 0.002 * np.arange(n_kf),
+                                   np.zeros(n_kf)], -1), rng.normal(0, 0.01, (n_kf, 3))], 1)
+    T = se3_exp(torch.from_numpy(xi.astype(np.float32))).numpy()
+    ids = np.stack([rng.choice(P, N, replace=False) for _ in range(n_kf)])
+    pc = np.einsum("kij,knj->kni", T[:, :3, :3], X[ids]) + T[:, None, :3, 3]
+    uv = np.stack([517.3 * pc[..., 0] / pc[..., 2] + 318.6,
+                   516.5 * pc[..., 1] / pc[..., 2] + 255.3], -1) + rng.normal(0, 0.5, (n_kf, N, 2))
+    d = se3_exp(torch.from_numpy(rng.normal(0, 0.005, (n_kf, 6)).astype(np.float32))).numpy()
+    T0 = np.concatenate([T[:1], (d @ T)[1:]])
+    m = ms.make_empty_map(K, P, N, device="cpu")
+
+    def rows(a, fill):
+        out = np.full((K,) + a.shape[1:], fill, a.dtype)
+        out[:n_kf] = a
+        return torch.from_numpy(out)
+
+    m = m._replace(
+        kf_pose_cw=torch.cat([torch.from_numpy(T0.astype(np.float32)),
+                              torch.eye(4).repeat(K - n_kf, 1, 1)]),
+        kf_xy=rows(uv.astype(np.float32), 0.0), kf_point=rows(ids.astype(np.int32), -1),
+        kf_kp_valid=rows(np.ones((n_kf, N), bool), False),
+        kf_valid=rows(np.ones(n_kf, bool), False),
+        kf_parent=rows((np.arange(n_kf) - 1).astype(np.int32), -1),
+        pt_pos=torch.from_numpy(X + rng.normal(0, 0.02, X.shape).astype(np.float32)),
+        pt_valid=torch.ones(P, dtype=torch.bool),
+        n_kf=torch.tensor(n_kf, dtype=torch.int32), n_pt=torch.tensor(P, dtype=torch.int32))
+    return type(m)(*(x.to(device) for x in m))
+
+
+def mesh_pose_graph(m):
+    """The essential graph's inputs on ``m``: its edges (spanning tree,
+    covisibility, one loop edge from the last keyframe back to keyframe 0
+    that disagrees with the map's relative pose by 5 cm and 0.01 rad),
+    keyframe 0 fixed."""
+    import torch
+
+    from orbslam2_tpu_torch.models import map_state as ms
+    from orbslam2_tpu_torch.solvers import pose_graph as pg
+    from orbslam2_tpu_torch.solvers.lie import se3_exp
+
+    n = int(m.n_kf)
+    dev = m.pt_pos.device
+    drift = se3_exp(torch.tensor([0.04, 0.0, 0.03, 0.0, 0.01, 0.0], device=dev))
+    S = drift @ m.kf_pose_cw[n - 1] @ torch.linalg.inv(m.kf_pose_cw[0])
+    edges = pg.edges_from_map(m.kf_pose_cw, m.kf_valid, m.kf_parent, ms.covisibility(m),
+                              torch.tensor([0], device=dev), torch.tensor([n - 1], device=dev),
+                              S[None], torch.ones(1, dtype=torch.bool, device=dev))
+    return edges, torch.arange(m.kf_capacity, device=dev) == 0
+
+
+def _mesh_solvers(m, cam, inv_s2, mesh):
+    """Local BA at the bench window around keyframe 3, the joint GBA and
+    the essential graph on ``m``: single-device with ``mesh`` None.  Returns
+    their outputs, the wall seconds of the local BA and the joint GBA (15
+    LM iterations each) and the joint GBA's collectives (``parallel.mesh.
+    STATS`` over it)."""
+    import torch
+
+    from orbslam2_tpu_torch.parallel import mesh as pmesh
+    from orbslam2_tpu_torch.parallel.dist_ba import distributed_joint_global_ba
+    from orbslam2_tpu_torch.parallel.dist_ba import distributed_local_ba
+    from orbslam2_tpu_torch.parallel.dist_pose_graph import make_distributed_pose_graph
+    from orbslam2_tpu_torch.solvers import pose_graph as pg
+    from orbslam2_tpu_torch.solvers.global_ba import run_joint_global_ba
+    from orbslam2_tpu_torch.solvers.local_ba import local_bundle_adjustment
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    out = {}
+    out["lba"], t_l = timed(lambda: local_bundle_adjustment(m, 3, cam, inv_s2) if mesh is None
+                            else distributed_local_ba(m, 3, mesh, cam, inv_s2))
+    before = dict(pmesh.STATS)
+    out["gba"], t_g = timed(lambda: run_joint_global_ba(m, cam, inv_s2) if mesh is None
+                            else distributed_joint_global_ba(m, mesh, cam, inv_s2))
+    gba_stats = {k: pmesh.STATS[k] - before[k] for k in before}
+    edges, fixed = mesh_pose_graph(m)
+    if mesh is None:
+        T, s = pg.optimize_essential_graph(m.kf_pose_cw, m.kf_valid, edges, fixed, iters=20,
+                                           fix_scale=True)
+    else:
+        T, s = make_distributed_pose_graph(mesh, iters=20, fix_scale=True)(
+            m.kf_pose_cw, m.kf_valid, edges, fixed)
+    out["pg"] = (T, s)
+    return out, t_l, t_g, gba_stats
+
+
+def _mesh_slam(settings, frames, mesh):
+    import torch
+
+    from orbslam2_tpu_torch.models.system import SlamSystem
+
+    system = SlamSystem(settings, "rgbd", mesh=mesh, device="cuda")
+    for i, (image, depth) in enumerate(frames):
+        system.track_rgbd(torch.as_tensor(image, device="cuda"),
+                          torch.as_tensor(depth, device="cuda"), float(i))
+    system.shutdown()
+    return system
+
+
+def _mesh_rank(rank, n, root):
+    """One rank of phase 20: gloo through ``root``'s file, the card, this
+    process's kernels; writes ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.parallel import mesh as pmesh
+    from orbslam2_tpu_torch.parallel.distributed import initialize_distributed
+
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        kernels.load()
+        initialize_distributed(f"file://{root}/init", num_processes=n, process_id=rank,
+                               backend="gloo")
+        mesh = pmesh.make_mesh(n)
+        gold = torch.load(os.path.join(root, "golden.pt"), weights_only=False)
+        settings = gold["settings"]
+        cam = settings.camera_model()
+        m = mesh_map("cuda")
+        inv_s2 = torch.ones(8, device="cuda")
+        # The single-device solvers again in this process, first: the
+        # witness that a second process on the card repeats the golden bits,
+        # and the first calls' costs, out of the sharded solvers' timing.
+        one = _mesh_solvers(m, cam, inv_s2, None)[0]
+        kernels.reset_launch_counts()
+        res, t_l, t_g, gba_stats = _mesh_solvers(m, cam, inv_s2, mesh)
+        solver_launches = dict(kernels.LAUNCHES)
+
+        def differing(a, b):
+            return {f: float((x.cpu().double() - y.cpu().double()).abs().max())
+                    for f, x, y in zip(a._fields, a, b) if not torch.equal(x.cpu(), y.cpu())}
+
+        eq = {name: differing(res[name], type(res[name])(*gold[name]))
+              for name in ("lba", "gba")}
+        out["one_device_here"] = {name: differing(one[name], type(one[name])(*gold[name]))
+                                  for name in ("lba", "gba")}
+        T, s = res["pg"]
+        out["pg_err"] = max(float((T.cpu() - gold["pg"][0]).abs().max()),
+                            float((s.cpu() - gold["pg"][1]).abs().max()))
+        kernels.reset_launch_counts()
+        system = _mesh_slam(settings, gold["frames"], mesh)
+        slam_launches = dict(kernels.LAUNCHES)
+        poses = system.poses_wc()
+        out.update(
+            equal=eq, lba_s=t_l, gba_s=t_g, solver_launches=solver_launches,
+            slam_launches=slam_launches, gba_collectives=gba_stats,
+            route=pmesh.collective_route(mesh, "cuda"),
+            slam_equal=bool(np.array_equal(poses, gold["slam_poses"])
+                            and all(torch.equal(a.cpu(), b)
+                                    for a, b in zip(system.map, gold["slam_map"]))),
+            slam_digest=float(np.abs(poses).sum()), has_mesh=system.local_mapper.mesh is not None)
+    except Exception:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_check(card, settings, seq):
+    """Phase 20: MESH_RANKS ranks (processes) on the one card, joined by
+    gloo (NCCL refuses two ranks on one device; gloo gathers CUDA tensors
+    through the host, which every gather here does).  On each rank: the
+    sharded local BA at the bench window (C = 16, N = 1024) and the joint
+    GBA at C = 128, N = 1024 equal to the single-device solvers on the card
+    (``torch.equal``), with K4 and K5 launched on every rank; the
+    distributed essential graph within MESH_PG_TOL of the single-device
+    one; ``SlamSystem(rgbd, mesh=...)`` on MESH_SLAM_FRAMES of phase 8's
+    frames equal to the single-process run bit for bit (and so the ranks to
+    each other), K1-K5 launched.  Prints the wall time per LM iteration on
+    one rank and on two and the collectives' milliseconds.  Returns the
+    launches of rank 0."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    m = mesh_map("cuda")
+    cam = settings.camera_model()
+    inv_s2 = torch.ones(8, device="cuda")
+    # The earlier phases took the first calls' costs in this process.
+    res, t_l, t_g, _ = _mesh_solvers(m, cam, inv_s2, None)
+    frames = list(zip(seq.images[:MESH_SLAM_FRAMES], seq.depths[:MESH_SLAM_FRAMES]))
+    system = _mesh_slam(settings, frames, None)
+    gold = {name: tuple(x.cpu() for x in res[name]) for name in ("lba", "gba")}
+    gold.update(pg=tuple(x.cpu() for x in res["pg"]), settings=settings, frames=frames,
+                slam_poses=system.poses_wc(), slam_map=tuple(x.cpu() for x in system.map))
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(gold, os.path.join(root, "golden.pt"))
+        t0 = time.perf_counter()
+        tmp.spawn(_mesh_rank, args=(MESH_RANKS, root), nprocs=MESH_RANKS, join=True)
+        ranks_s = time.perf_counter() - t0
+        outs = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    for o in outs:
+        if "error" in o:
+            raise AssertionError(f"mesh: rank {o['rank']} failed:\n{o['error']}")
+    r0 = outs[0]
+    iters = 15
+    phase("mesh", f"{card}: {MESH_RANKS} ranks on one card ({r0['route']}), {ranks_s:.1f} s of "
+          f"rank processes; LM iteration wall ms, one rank / each of {MESH_RANKS}: local BA "
+          f"C=16 N=1024 {t_l / iters * 1e3:.2f} / " +
+          ", ".join(f"{o['lba_s'] / iters * 1e3:.2f}" for o in outs) +
+          f"; joint GBA C=128 N=1024 {t_g / iters * 1e3:.2f} / " +
+          ", ".join(f"{o['gba_s'] / iters * 1e3:.2f}" for o in outs) +
+          "; the joint GBA's collectives " + ", ".join(
+              f"{o['gba_collectives']['calls']} calls {o['gba_collectives']['seconds'] * 1e3:.1f}"
+              f" ms ({o['gba_collectives']['seconds'] / iters * 1e3:.2f} ms per LM iteration, "
+              f"{o['gba_collectives']['bytes'] / 1e6:.1f} MB)" for o in outs))
+    for o in outs:
+        phase("mesh", f"rank {o['rank']}: local BA and joint GBA against one device (fields "
+              f"that differ, largest difference) {o['equal']}, the single-device solvers in "
+              f"this rank's process {o['one_device_here']}, essential graph within {o['pg_err']:.3e} of one device (limit "
+              f"{MESH_PG_TOL}), SlamSystem(mesh) on {MESH_SLAM_FRAMES} frames equal to one "
+              f"process {o['slam_equal']}; launches in the solvers {o['solver_launches']}, "
+              f"in the system {o['slam_launches']}")
+        if any(o["equal"].values()) or any(o["one_device_here"].values()) \
+                or not o["slam_equal"] or not o["has_mesh"]:
+            raise AssertionError(f"mesh: rank {o['rank']} differs from one device")
+        if not o["pg_err"] <= MESH_PG_TOL:
+            raise AssertionError(f"mesh: essential graph {o['pg_err']} from one device")
+        sl, so = o["solver_launches"], o["slam_launches"]
+        if sl["ba_normal_equations"] <= 0 or sl["ba_chi2"] <= 0 or min(so.values()) <= 0:
+            raise AssertionError(f"mesh: rank {o['rank']} launches {sl} / {so}")
+    return {k: [o["solver_launches"][k] + o["slam_launches"][k] for o in outs]
+            for k in r0["slam_launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3776,7 +4173,7 @@ def main() -> int:
 
 
 def run_phases(card, kind, t_start, sequences) -> int:
-    """Phases 2-18 and the result lines; ``sequences`` holds the futures of
+    """Phases 2-20 and the result lines; ``sequences`` holds the futures of
     the rendered sequences."""
     import numpy as np
     import torch
@@ -3800,16 +4197,15 @@ def run_phases(card, kind, t_start, sequences) -> int:
         radius=0.25, forward=0.5,
     )
     phase("data", f"{N_FRAMES} frames rendered in {time.perf_counter() - t0:.2f} s")
-    stereo_settings = kitti_settings()
-    stereo_seq = rendered(sequences["stereo"], "stereo", stereo_settings)
 
     # 3. K1 against plain ---------------------------------------------------
+    # Its inputs here; its checks run after phase 6, by when the stereo
+    # frame they also take has been rendered beside phases 4-6.
     def pyramid(image, s):
         return [lv.contiguous() for lv in pyr_ops.build_pyramid(
             torch.as_tensor(image, device="cuda"), s.orb.n_levels, s.orb.scale_factor)]
 
     levels = pyramid(seq.images[0], settings)
-    stereo_levels = pyramid(stereo_seq.images[0][0], stereo_settings)
     gen = torch.Generator(device="cpu").manual_seed(0)
     odd = {
         "noise": (torch.rand(480, 640, generator=gen) * 255).cuda(),
@@ -3817,43 +4213,6 @@ def run_phases(card, kind, t_start, sequences) -> int:
         "ragged": (torch.rand(33, 129, generator=gen) * 255).cuda(),
         "tiny": (torch.rand(7, 7, generator=gen) * 255).cuda(),
     }
-    k1_cases = {"640x480 frame, 8 levels": levels, "1241x376 frame, 8 levels": stereo_levels}
-    k1_cases.update({name: [x] for name, x in odd.items()})
-    k1_cases["mixed: " + ", ".join(odd)] = list(odd.values())
-
-    def k1_plain(xs, min_th):
-        out = []
-        for x in xs:
-            s = fast.nms3x3(fast.fast_score(x))
-            out.append(torch.where(s >= min_th, s, torch.zeros_like(s)))
-        return out
-
-    k1_err = 0.0
-    min_th_cfg = float(settings.orb.min_th_fast)
-    for min_th in sorted({0.0, min_th_cfg}):
-        for name, xs in k1_cases.items():
-            got = fast.fast_score_nms_levels(xs, min_th)
-            want = k1_plain(xs, min_th)
-            torch.cuda.synchronize()
-            for i, (g, w) in enumerate(zip(got, want)):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"K1 differs from plain at {name}, image {i} "
-                                         f"{tuple(w.shape)}, min_th {min_th}: "
-                                         f"{int((g != w).sum())} pixels")
-                k1_err = max(k1_err, float((g - w).abs().max()))
-            phase("K1", f"{name} (one call, min_th {min_th:g}): equal, "
-                  f"{sum(int((w > 0).sum()) for w in want)} corners")
-    k1 = {}
-    for name, xs in (("640x480", levels), ("1241x376", stereo_levels)):
-        ms = time_ms(lambda: fast.fast_score_nms_levels(xs, min_th_cfg))
-        plain_ms = time_ms(lambda: k1_plain(xs, min_th_cfg))
-        dev_us = device_us(lambda: fast.fast_score_nms_levels(xs, min_th_cfg), "fast_nms_kernel")
-        b = k1_bound(xs)
-        k1[name] = (ms, plain_ms, b, dev_us)
-        phase("K1", f"{card}: the 8 levels of a {name} frame ({sum(x.numel() for x in xs)} px) "
-              f"in one launch: kernel {ms:.4f} ms (device {dev_us:.2f} us/launch), plain "
-              f"{plain_ms:.4f} ms, bound {b[0] * 1e3:.3f} us ({b[1]}), share of the bound "
-              f"{b[0] * 1e3 / dev_us:.3f}")
 
     # 4. K2 against plain ---------------------------------------------------
     k2_err = 0.0
@@ -3907,6 +4266,48 @@ def run_phases(card, kind, t_start, sequences) -> int:
                   f"{b4[0] * 1e3 / t[4]:.3f}; K5 kernel {t[2]:.4f} ms (device {t[5]:.2f} us), "
                   f"plain {t[3]:.4f} ms, bound {b5[0] * 1e3:.3f} us ({b5[1]}), share "
                   f"{b5[0] * 1e3 / t[5]:.3f}")
+
+    # 3. (continued) K1's checks, on the stereo frame too
+    stereo_settings = kitti_settings()
+    stereo_seq = rendered(sequences["stereo"], "stereo", stereo_settings)
+    stereo_levels = pyramid(stereo_seq.images[0][0], stereo_settings)
+    k1_cases = {"640x480 frame, 8 levels": levels, "1241x376 frame, 8 levels": stereo_levels}
+    k1_cases.update({name: [x] for name, x in odd.items()})
+    k1_cases["mixed: " + ", ".join(odd)] = list(odd.values())
+
+    def k1_plain(xs, min_th):
+        out = []
+        for x in xs:
+            s = fast.nms3x3(fast.fast_score(x))
+            out.append(torch.where(s >= min_th, s, torch.zeros_like(s)))
+        return out
+
+    k1_err = 0.0
+    min_th_cfg = float(settings.orb.min_th_fast)
+    for min_th in sorted({0.0, min_th_cfg}):
+        for name, xs in k1_cases.items():
+            got = fast.fast_score_nms_levels(xs, min_th)
+            want = k1_plain(xs, min_th)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1 differs from plain at {name}, image {i} "
+                                         f"{tuple(w.shape)}, min_th {min_th}: "
+                                         f"{int((g != w).sum())} pixels")
+                k1_err = max(k1_err, float((g - w).abs().max()))
+            phase("K1", f"{name} (one call, min_th {min_th:g}): equal, "
+                  f"{sum(int((w > 0).sum()) for w in want)} corners")
+    k1 = {}
+    for name, xs in (("640x480", levels), ("1241x376", stereo_levels)):
+        ms = time_ms(lambda: fast.fast_score_nms_levels(xs, min_th_cfg))
+        plain_ms = time_ms(lambda: k1_plain(xs, min_th_cfg))
+        dev_us = device_us(lambda: fast.fast_score_nms_levels(xs, min_th_cfg), "fast_nms_kernel")
+        b = k1_bound(xs)
+        k1[name] = (ms, plain_ms, b, dev_us)
+        phase("K1", f"{card}: the 8 levels of a {name} frame ({sum(x.numel() for x in xs)} px) "
+              f"in one launch: kernel {ms:.4f} ms (device {dev_us:.2f} us/launch), plain "
+              f"{plain_ms:.4f} ms, bound {b[0] * 1e3:.3f} us ({b[1]}), share of the bound "
+              f"{b[0] * 1e3 / dev_us:.3f}")
 
     phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
     # 7. the slice with mapping off -------------------------------------------
@@ -4124,13 +4525,28 @@ def run_phases(card, kind, t_start, sequences) -> int:
     mono_launches, mono_driver_launches = mono_check(card, sequences["mono"])
 
     phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
-    # 17. mono loop closing with the scale free -----------------------------------
-    mono_loop_carried, mono_loop_launches = mono_loop_check(card, sequences["mono_loop"])
+    # 17. mono loop closing with the scale free: (b) in a process of its own,
+    # beside (a) and phases 18-20 ---------------------------------------------
+    mono_loop_carried, mono_loop_b = mono_loop_check(card, sequences["mono_loop"])
+    try:
+        phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+        # 18. a TUM RGB-D sequence on disk through the dataset CLI and LiveDriver
+        dataset_launches = dataset_check(card, settings, seq)
 
-    phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
-    # 18. a TUM RGB-D sequence on disk through the dataset CLI and LiveDriver ----
-    dataset_launches = dataset_check(card, settings, seq)
+        phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+        # 19. the unfused tracker on phase 8's configuration ---------------------
+        unfused_launches = unfused_check(card, settings, seq, mapping_run,
+                                         msystem.tracker.metrics["frames_lost"])
 
+        phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+        # 20. the mesh: two ranks on the card --------------------------------------
+        mesh_launches = mesh_check(card, settings, seq)
+
+        phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
+        mono_loop_launches = mono_loop_b_result(mono_loop_b)
+    finally:
+        if mono_loop_b[0].is_alive():
+            mono_loop_b[0].terminate()
     phase("time", f"{time.perf_counter() - t_start:.1f} s so far")
 
     # The camera count of the main path's local-BA window (its last keyframe).
@@ -4194,6 +4610,8 @@ def run_phases(card, kind, t_start, sequences) -> int:
         row["mono_loop_launches"] = {"carried": mono_loop_carried[row["name"]],
                                      "from_frame_0": mono_loop_launches[row["name"]]}
         row["dataset_launches"] = dataset_launches[row["name"]]
+        row["unfused_launches"] = unfused_launches[row["name"]]
+        row["mesh_launches"] = mesh_launches[row["name"]]
         row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         row["lost_ms"] = lost_ms(main_stats, tag, row["launches"])
         row["stereo_lost_ms"] = lost_ms(stereo_stats, tag, row["stereo_launches"])

@@ -308,6 +308,15 @@ def ba_split(C: int, N: int) -> int:
     return S
 
 
+def _split(split, C: int, N: int) -> int:
+    """``split`` checked (1, 2, 4 or 8, at most N), or ba_split(C, N)."""
+    if split is None:
+        return ba_split(C, N)
+    if split not in (1, 2, 4, 8) or split > max(N, 1):
+        raise ValueError(f"ba kernels: split {split} for N={N}")
+    return int(split)
+
+
 def _ba_inputs(poses, X, uv, ur, inv_s2, mask):
     """Checks of the K4/K5 inputs; returns (C, N)."""
     _check("ba poses", poses, torch.float32, 3)
@@ -330,13 +339,16 @@ def _ba_inputs(poses, X, uv, ur, inv_s2, mask):
     return C, N
 
 
-def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust: bool):
+def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust: bool,
+                             split=None):
     """K4: poses (C, 4, 4), X (C, 3, N), uv (C, 2, N), ur / inv_s2 (C, N)
     float32 and mask (C, N) bool, all CUDA; ``intrinsics`` the floats
     (fx, fy, cx, cy, bf).  Returns (H_cc (C, 6, 6), b_c (C, 6),
     pack (C, 32, N), chi2_sum (C,)), as ``solvers.ba_kernels``; one launch
-    of (ba_split(C, N), C) blocks in clusters of ba_split(C, N)."""
+    of (S, C) blocks in clusters of S = ``split``, by default
+    ba_split(C, N) (a sharded solve passes its whole problem's)."""
     C, N = _ba_inputs(poses, X, uv, ur, inv_s2, mask)
+    S = _split(split, C, N)
     dev = X.device
     pack = torch.empty((C, 32, N), dtype=torch.float32, device=dev)
     H = torch.empty((C, 6, 6), dtype=torch.float32, device=dev)
@@ -347,7 +359,7 @@ def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust:
         err = lib.ba_normal_equations_launch(
             poses.data_ptr(), X.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_s2.data_ptr(),
             mask.data_ptr(), pack.data_ptr(), H.data_ptr(), b.data_ptr(), chi2.data_ptr(),
-            C, N, ba_split(C, N), *(float(v) for v in intrinsics), int(bool(robust)),
+            C, N, S, *(float(v) for v in intrinsics), int(bool(robust)),
             _stream(X),
         )
     _raise_on(err, "ba_normal_equations")
@@ -355,9 +367,11 @@ def ba_normal_equations_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, robust:
     return H, b, pack, chi2
 
 
-def ba_chi2_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics):
-    """K5: the inputs of K4.  Returns (chi2 (C, N), chi2_sum (C,))."""
+def ba_chi2_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics, split=None):
+    """K5: the inputs of K4 (``split`` as there).  Returns (chi2 (C, N),
+    chi2_sum (C,))."""
     C, N = _ba_inputs(poses, X, uv, ur, inv_s2, mask)
+    S = _split(split, C, N)
     dev = X.device
     chi2 = torch.empty((C, N), dtype=torch.float32, device=dev)
     total = torch.empty((C,), dtype=torch.float32, device=dev)
@@ -365,7 +379,7 @@ def ba_chi2_cuda(poses, X, uv, ur, inv_s2, mask, intrinsics):
     with torch.cuda.device(dev):
         err = lib.ba_chi2_launch(
             poses.data_ptr(), X.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_s2.data_ptr(),
-            mask.data_ptr(), chi2.data_ptr(), total.data_ptr(), C, N, ba_split(C, N),
+            mask.data_ptr(), chi2.data_ptr(), total.data_ptr(), C, N, S,
             *(float(v) for v in intrinsics), _stream(X),
         )
     _raise_on(err, "ba_chi2")

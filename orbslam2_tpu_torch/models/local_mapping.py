@@ -394,10 +394,12 @@ class LocalMapper:
     def __init__(self, settings: Settings, enable_ba: bool = True,
                  enable_kf_culling: bool = True, enable_fuse: bool = True,
                  sensor: str = "mono", n_fuse_neighbors: int = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "LocalMapper(mesh=...): the distributed local BA is not ported yet "
-                "(ROADMAP Queue 1 item 17)")
+        from ..parallel.mesh import check_mesh
+
+        # A mesh of several ranks shards local BA's cameras over them
+        # (parallel/dist_ba.py); a mesh of one is ignored, as the
+        # reference ignores it.
+        self.mesh = check_mesh(mesh, "LocalMapper")
         self.settings = settings
         tpu = settings.tpu
         # Window caps, clamped to the keyframe pool (a covisibility ranking
@@ -445,7 +447,7 @@ class LocalMapper:
         pt_cap = min(8192, max(2, n_local // 2) * m.feat_capacity)
         return local_bundle_adjustment(
             m, kf_id, self.cam, self.tables(m.pt_pos.device)[2],
-            n_local=n_local, n_fixed=n_fixed, pt_cap=pt_cap,
+            n_local=n_local, n_fixed=n_fixed, pt_cap=pt_cap, mesh=self.mesh,
         )
 
     def fuse_pairs(self, m: ms.MapState, kf: torch.Tensor, small: bool):
@@ -486,8 +488,7 @@ class LocalMapper:
             m = ms.update_point_stats(m, sf)
         return m
 
-    def process_keyframe(self, m: ms.MapState, kf_id: int, abort=None,
-                         n_now: int = None) -> ms.MapState:
+    def process_keyframe(self, m, kf_id: int, abort=None, n_now: int = None):
         """The mapping sequence for keyframe ``kf_id`` (an int): cull
         points, triangulate, fuse, refresh point statistics, local BA,
         distinctive descriptors of the touched points, cull keyframes.
@@ -497,7 +498,16 @@ class LocalMapper:
         ``abort``, a ``threading.Event`` (the InterruptBA analog,
         LocalMapping.cc mbAbortBA): once it is set, local BA and every
         stage after it are skipped; the structural stages (culling,
-        triangulation, fuse, point statistics) always complete."""
+        triangulation, fuse, point statistics) always complete.
+
+        ``m`` may be a map sharded over a mesh (``parallel/distributed.
+        shard_map_state``): it is gathered whole on entry, mapped as an
+        unsharded map is, and this rank's block is returned."""
+        from ..parallel.distributed import ShardedMap, gather_map_state, shard_map_state
+
+        if isinstance(m, ShardedMap):
+            out = self.process_keyframe(gather_map_state(m), kf_id, abort=abort, n_now=n_now)
+            return shard_map_state(out, m.mesh)
 
         def aborted():
             return abort is not None and abort.is_set()

@@ -121,9 +121,12 @@ class LoopCloser:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "LoopCloser(mesh=...) is not ported yet (ROADMAP Queue 1 item 17)")
+        from ..parallel.mesh import check_mesh
+
+        # A mesh of several ranks shards the essential graph's edges and the
+        # joint GBA's cameras over them (parallel/); a mesh of one is
+        # ignored, as the reference ignores it.
+        self.mesh = check_mesh(mesh, "LoopCloser")
         if not isinstance(database, KeyframeDatabase):
             raise TypeError(f"LoopCloser(database=...) takes this package's KeyframeDatabase, "
                             f"not {type(database).__name__}")
@@ -445,9 +448,15 @@ class LoopCloser:
             edges = pg.edges_from_map(T_old_all, m.kf_valid, m.kf_parent, W,
                                       loop_i, loop_j, loop_S, loop_v, min_covis_weight=100)
             fixed = ar == kf_l
-            T_new, scales = pg.optimize_essential_graph(
-                T_old_all, m.kf_valid, edges, fixed, init_S_cw=init_S, iters=20,
-                fix_scale=self.fix_scale)
+            if self.mesh is not None:
+                from ..parallel.dist_pose_graph import make_distributed_pose_graph
+
+                run = make_distributed_pose_graph(self.mesh, iters=20, fix_scale=self.fix_scale)
+                T_new, scales = run(init_S, m.kf_valid, edges, fixed)
+            else:
+                T_new, scales = pg.optimize_essential_graph(
+                    T_old_all, m.kf_valid, edges, fixed, init_S_cw=init_S, iters=20,
+                    fix_scale=self.fix_scale)
 
             # Each map point follows its reference keyframe's old -> new
             # similarity (Optimizer.cc:≈1050).
@@ -529,7 +538,8 @@ class LoopCloser:
                 with record_function(STAGE_PREFIX + f"gba_segment{k}"):
                     self.host_syncs += 1  # run_joint_global_ba's validity read
                     m2 = run_joint_global_ba(m, self.cam, self.inv_sigma2, phase_iters=seg,
-                                             initial_prune=6.0 if k == 0 else 0.0)
+                                             initial_prune=6.0 if k == 0 else 0.0,
+                                             mesh=self.mesh)
                     if m2 is m:  # beyond the camera cap: the alternation instead
                         break
                     if not guards_ok(m2):

@@ -9,8 +9,8 @@ thread on map snapshots, the reference's LocalMapping and LoopClosing
 threads), the localization-only mode switches, ``reset`` and
 ``shutdown``, the metrics snapshot and the three trajectory savers
 (SaveTrajectoryTUM ≈270, SaveKeyFrameTrajectoryTUM ≈330,
-SaveTrajectoryKITTI ≈370).  Options the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item, rather than being ignored.
+SaveTrajectoryKITTI ≈370).  ``mesh`` shards the map optimizers over the
+ranks of a process group (``parallel/``).
 """
 
 from __future__ import annotations
@@ -50,10 +50,6 @@ def _default_vocabulary(seed: int = 0) -> Vocabulary:
     return vocabulary_from_arrays(*_default_vocabulary_arrays(seed), levels=3)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 class SlamSystem:
     """``SlamSystem(settings)`` (mono, the default) then ``track_monocular``
     per frame, ``SlamSystem(settings, "rgbd")`` then ``track_rgbd``, or
@@ -77,9 +73,18 @@ class SlamSystem:
     device); the snapshot goes there and the result comes back.  The loop
     closer runs on the tracker's device, beside the keyframe database.
 
-    The signature and defaults are the reference's; ``mesh`` (not ported
-    yet) raises.  ``device`` is where tracking and mapping run: the card
-    unless the caller asks for "cpu".
+    The signature and defaults are the reference's.  ``mesh``, a
+    ``parallel/mesh.make_mesh`` DeviceMesh of several ranks, shards local
+    BA, the joint GBA and the essential graph over them: every rank builds
+    its system with the mesh and feeds it the same frames, tracking runs
+    whole on each, and the ranks' maps stay equal bit for bit.  They equal
+    a one-process run's bit for bit too (the sharded local BA and joint GBA
+    are the single-device solvers'), until a loop is corrected: the
+    distributed essential graph agrees with one device's within 2e-3.  A
+    mesh of one is ignored.  It refuses ``async_mapping``, whose adoptions
+    would follow each rank's own clock.
+    ``device`` is where tracking and mapping run: the card unless the
+    caller asks for "cpu".
     """
 
     def __init__(
@@ -101,12 +106,18 @@ class SlamSystem:
         if vocabulary is not None and not isinstance(vocabulary, Vocabulary):
             raise TypeError(f"SlamSystem(vocabulary=...) takes this package's Vocabulary "
                             f"(ops/bow.py, utils/vocab.py), not {type(vocabulary).__name__}")
-        if mesh is not None:
-            raise _not_ported("multi-device solvers (mesh)", 17)
+        from ..parallel.mesh import check_mesh
+
+        self.mesh = check_mesh(mesh, "SlamSystem")
+        if self.mesh is not None and async_mapping:
+            raise ValueError("SlamSystem(mesh=..., async_mapping=True): every rank must map "
+                             "the same keyframes at the same frames, and async adoption "
+                             "follows each rank's wall clock")
         self.settings = settings
         self.sensor = sensor
         self.device = torch.device(device)
-        self.local_mapper = LocalMapper(settings, sensor=sensor) if enable_mapping else None
+        self.local_mapper = (LocalMapper(settings, sensor=sensor, mesh=self.mesh)
+                             if enable_mapping else None)
         self.vocabulary = vocabulary if vocabulary is not None else _default_vocabulary()
         self.enable_loop_closing = enable_loop_closing
         self.pipeline = pipeline
@@ -124,7 +135,8 @@ class SlamSystem:
                                          device=self.device)
         self.loop_closer = (
             LoopCloser(self.settings, self.database,
-                       fix_scale=(self.sensor != Sensor.MONOCULAR), device=self.device)
+                       fix_scale=(self.sensor != Sensor.MONOCULAR), mesh=self.mesh,
+                       device=self.device)
             if self.enable_loop_closing else None
         )
         self.mapping_pipeline = self._make_mapping_pipeline()

@@ -24,7 +24,9 @@ extracted with twice the feature budget, ``matcher.
 search_for_initialization``, ``twoview.initialize_two_view``); every later
 frame goes through ``track_fused._fused_track``, one frame at
 a time, pipelined (frame k resolved after frame k+1 is tracked) or in
-chunks of C frames (``track_fused.make_fused_chunk_tracker``).  A
+chunks of C frames (``track_fused.make_fused_chunk_tracker``); with
+``use_fused=False`` it goes through the same chain step by step on the
+host (``Tracker._track``, the reference's unfused path).  A
 ``LocalMapper`` given to the tracker maps each new keyframe, in line or,
 with an ``AsyncMappingPipeline``, in a worker thread on a map snapshot
 that is adopted at a later frame boundary; a ``KeyframeDatabase`` takes
@@ -50,7 +52,7 @@ from ..ops import pyramid as pyr_ops
 from ..ops.extractor import OrbExtractor
 from ..ops.hamming import TH_HIGH, TH_LOW, match_descriptors, rotation_consistency
 from ..ops.select import topk_stable
-from ..solvers.lie import se3_apply, se3_inverse
+from ..solvers.lie import orthonormalize_se3, se3_apply, se3_inverse
 from ..solvers.pose_opt import PoseObs, pose_optimization
 from ..utils.camera import CameraModel, in_image
 from . import map_state as ms
@@ -526,6 +528,11 @@ class Tracker:
         keyframe database, mapping, loop closing, relocalization) after
         it, or after the next one while a mapping job is in flight.
 
+    ``use_fused=False`` (also set as an attribute after construction)
+    tracks each initialized frame through the step-by-step host chain
+    (``_track``), which ignores ``pipeline`` and ``chunk``, as the
+    reference's does.
+
     ``flush()`` resolves whatever is in flight.  With ``mapping_pipeline``
     (``async_pipeline.AsyncMappingPipeline``) keyframes queue for a worker
     thread that maps them on snapshots, adopted at later frame boundaries;
@@ -541,8 +548,8 @@ class Tracker:
     """
 
     def __init__(self, settings: Settings, local_mapper=None, database=None,
-                 loop_closer=None, pipeline: bool = False, chunk: int = 0,
-                 mapping_pipeline=None, device="cuda"):
+                 loop_closer=None, use_fused: bool = True, pipeline: bool = False,
+                 chunk: int = 0, mapping_pipeline=None, device="cuda"):
         from .async_pipeline import AsyncMappingPipeline
         from .kf_database import KeyframeDatabase
         from .local_mapping import LocalMapper
@@ -560,6 +567,7 @@ class Tracker:
         self.loop_closer = loop_closer
         self.settings = settings
         self.device = torch.device(device)
+        self.use_fused = use_fused
         tpu = settings.tpu
         # Async mapping: keyframes insert at once and queue here for the
         # worker (the reference's mlNewKeyFrames, LocalMapping.h:≈110); a
@@ -673,9 +681,13 @@ class Tracker:
     def _track_inputs(self, sensor: str, inputs):
         inputs = tuple(torch.as_tensor(x, dtype=torch.float32, device=self.device)
                        for x in inputs)
-        if self.state != TrackState.NOT_INITIALIZED:
+        if self.state == TrackState.NOT_INITIALIZED:
+            self._track(self._build_frame(sensor, inputs, init=True), sensor)
+        elif self.use_fused:
             return self._track_fused(sensor, inputs)
-        self._track(self._build_frame(sensor, inputs, init=True), sensor)
+        else:
+            self._fused_sensor = sensor
+            self._track(self._build_frame(sensor, inputs), sensor)
         return self.last_T
 
     def _build_frame(self, sensor: str, inputs, init: bool = False) -> Frame:
@@ -689,16 +701,158 @@ class Tracker:
                                 self.settings.camera.depth_map_factor)
 
     def _track(self, frame: Frame, sensor: str):
-        """Initialization branch of Tracking::Track (the only one reached:
-        initialized frames take the fused path).  A mono frame that
-        initializes comes back downselected to the keyframes' capacity;
-        until then ``last_frame`` is the doubled-budget frame."""
-        if sensor == "mono":
-            frame = self._mono_initialize(frame) or frame
+        """Tracking::Track on the host.  Until the map is initialized, the
+        initialization branch: a mono frame that initializes comes back
+        downselected to the keyframes' capacity, and until then
+        ``last_frame`` is the doubled-budget frame.  After it, with
+        ``use_fused`` False, the step-by-step chain (the reference's
+        unfused path, ``Tracker._track``, which it keeps as the fused
+        chain's cross-check): the same decisions as
+        ``track_fused._fused_track``, each read on the host when it is
+        taken.  It ignores ``pipeline`` and ``chunk``."""
+        if self.state == TrackState.NOT_INITIALIZED:
+            if sensor == "mono":
+                frame = self._mono_initialize(frame) or frame
+            else:
+                self._stereo_initialize(frame)
+            self._log_pose()
+            self._finish_frame(frame)
+            return
+        mono = sensor == "mono"
+
+        # Motion model with the doubled-window retry under 20 matches
+        # (Tracking.cc:≈880).
+        ok = False
+        vo = None
+        if self.velocity is not None:
+            T_pred = self.velocity @ self.last_T
+            lf = self.last_frame
+
+            def motion(radius):
+                T, b, n_in, n_match, n_tot = track_motion_model(
+                    self.map, frame, T_pred, lf.xy, self.last_bindings, lf.level, self.cam,
+                    self.scale_factors, self.inv_sigma2, radius, T_last=self.last_T,
+                    last_angle=lf.angle, baseline=None if mono else self.cam.baseline,
+                    last_depth=None if mono else lf.depth, last_desc=lf.desc,
+                    last_valid=lf.valid, temp_depth_cap=self._th_depth(),
+                    use_temp=self.localization_only and not mono,
+                )
+                return T, b, *self._host(torch.stack([n_in, n_match, n_tot.to(n_in.dtype)]))
+
+            th = 15.0 if mono else 7.0
+            T, b, n_in, n_match, n_tot = motion(th)
+            if n_match < 20:
+                T, b, n_in, n_match, n_tot = motion(2.0 * th)
+            ok = n_in >= 10
+            # Localization-only VO candidate (mbVO, Tracking.cc:≈900): enough
+            # map and temporary inliers to dead-reckon if the map fails.
+            if self.localization_only and n_tot >= 20:
+                vo = (T, b, n_tot)
+        used_motion = ok
+        if not ok:
+            T, b, n_in = self._track_ref_kf(frame)
+            ok = n_in >= 10
+        weak = len(self.n_tracked_history) == 0 or self.n_tracked_history[-1] < 50
+        if ok:
+            T, b, n_in = self._track_local_map(frame, T, b, 2.0 if weak else 1.0)
+            ok = n_in >= 30
+        if not ok and used_motion:
+            # The motion-model pose failed the local map: one chance from
+            # the reference keyframe, gated on the final inlier count.
+            T, b, n_in = self._track_ref_kf(frame)
+            if n_in >= 6:
+                T, b, n_in = self._track_local_map(frame, T, b, 2.0)
+                ok = n_in >= 30
+        vo_fired = not ok and vo is not None
+        if vo_fired:
+            T, b, n_in = vo
+            ok = used_motion = True
+
+        self.metrics["frames"] += 1
+        self.metrics["track_path"] = ("vo" if vo_fired else "motion" if used_motion and ok
+                                      else "refkf" if ok else "none")
+        created = False
+        if ok:
+            self.state = TrackState.OK
+            T = orthonormalize_se3(T)
+            self.velocity = T @ se3_inverse(self.last_T)
+            self.last_T = T
+            self.n_tracked_history.append(n_in)
+            self.metrics["last_inliers"] = n_in
+            if self._need_new_keyframe(frame, b, n_in, sensor) and self._kf_gate():
+                self._create_keyframe(frame, T, b)
+                created = True
         else:
-            self._stereo_initialize(frame)
+            self.state = TrackState.LOST
+            self.velocity = None
+            self.metrics["frames_lost"] += 1
+
+        if (self.state == TrackState.LOST or vo_fired) and self.database is not None:
+            ok_reloc, T_r, b_r, n_r = self._relocalize(frame)
+            if ok_reloc:
+                b = b_r
+                self.state = TrackState.OK
+                self.last_T = T_r
+                self.velocity = None
+                self.n_tracked_history.append(n_r)
+                self.metrics["relocalizations"] += 1
+                self.metrics["track_path"] = "reloc"
+                self._mark_reloc()
+
         self._log_pose()
-        self._finish_frame(frame)
+        self.metrics["host_syncs"] += 2  # the pose log's reads
+        # A keyframe's bindings were stored by _create_keyframe, with its
+        # spawned points and scrubbed after mapping.
+        self._finish_frame(frame, b if (ok and not created) else None)
+
+    def _track_ref_kf(self, frame: Frame):
+        T, b, n_in, _ = track_reference_keyframe(self.map, frame, self.ref_kf, self.last_T,
+                                                 self.inv_sigma2, self.cam)
+        return T, b, self._host(n_in)
+
+    def _track_local_map(self, frame: Frame, T, b, rmult: float):
+        local_ids, local_valid = gather_local_points(self.map, b,
+                                                     n_local_kfs=self.settings.tpu.local_window)
+        T, b, n_in, self.map = track_local_map(self.map, frame, T, b, local_ids, local_valid,
+                                               self.cam, self.scale_factors, self.inv_sigma2,
+                                               rmult)
+        return T, b, self._host(n_in)
+
+    def _need_new_keyframe(self, frame: Frame, bindings, n_inliers: int, sensor: str) -> bool:
+        """Tracking::NeedNewKeyFrame (Tracking.cc:≈980) on the host, as
+        ``track_fused._fused_track``'s policy block computes it: (c1a ||
+        c1b || c1c) && c2 over the reference keyframe's points with at least
+        ``min_obs`` observers (3 above two keyframes, 2 with two, 1 with
+        one), close-point starvation for stereo and RGB-D, no keyframe in
+        localization-only mode, near a full pool or within 10 frames of a
+        relocalization.  The queue conditions are ``_kf_gate``'s.  One read."""
+        if self.localization_only or self.frame_id < self._no_kf_before:
+            return False
+        m = self.map
+        obs_counts = ms.point_observation_counts(m)
+        ref_pid = m.kf_point[self.ref_kf]
+        ref_bound = (ref_pid >= 0) & m.kf_kp_valid[self.ref_kf]
+        ref_obs = torch.where(ref_bound, obs_counts[ref_pid.clamp(min=0).long()], 0)
+        close = (frame.depth > 0) & (frame.depth < self._th_depth())
+        reads = self._host(torch.cat([
+            torch.stack([m.n_kf.to(torch.int32), (close & (bindings >= 0)).sum().to(torch.int32),
+                         (close & frame.valid).sum().to(torch.int32)]),
+            torch.stack([(ref_obs >= k).sum().to(torch.int32) for k in (1, 2, 3)]),
+        ]))
+        n_kf, n_close_tracked, n_close_total = reads[:3]
+        if n_kf >= m.kf_capacity - 1:
+            return False
+        min_obs = 3 if n_kf > 2 else (2 if n_kf > 1 else 1)
+        kf_tracked = reads[2 + min_obs]
+        mono = sensor == "mono"
+        close_starved = not mono and n_close_tracked < 100 and n_close_total > 70
+        frames_since = self.frame_id - self.last_kf_frame_id
+        tpu = self.settings.tpu
+        c1a = frames_since >= tpu.kf_max_gap
+        c1b = frames_since >= tpu.kf_busy_frames
+        c1c = not mono and (n_inliers < 0.25 * kf_tracked or close_starved)
+        c2 = (n_inliers < (0.9 if mono else 0.75) * kf_tracked or close_starved) and n_inliers > 15
+        return (c1a or c1b or c1c) and c2 and frames_since >= 1
 
     # -- fused per-frame path ------------------------------------------------
 

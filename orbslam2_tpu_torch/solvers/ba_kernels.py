@@ -113,27 +113,33 @@ def _ba_chi2_plain(poses, X, uv, ur, inv_s2, mask, cam: CameraModel):
     return chi2_out, (mask.to(torch.float32) * chi2_out).sum(-1)
 
 
-def ba_normal_equations(poses, X, uv, ur, inv_s2, mask, cam: CameraModel, robust: bool):
+def ba_normal_equations(poses, X, uv, ur, inv_s2, mask, cam: CameraModel, robust: bool,
+                        split=None):
     """Returns (H_cc (C, 6, 6), b_c (C, 6), pack (C, 32, N), chi2_sum (C,)).
-    The chi2 sum is over ``mask`` and includes the 1e9 sentinels."""
+    The chi2 sum is over ``mask`` and includes the 1e9 sentinels.  Each
+    camera's row comes from that camera alone; on the card its sums run
+    over ``split`` blocks (default ``kernels.ba_split(C, N)``), so a block
+    of the cameras given the whole problem's split has the whole problem's
+    bits."""
     if X.device.type == "cpu":
         return _ba_normal_equations_plain(poses, X, uv, ur, inv_s2, mask, cam, robust)
     from ..kernels import ba_normal_equations_cuda
 
     return ba_normal_equations_cuda(
         poses.contiguous(), X.contiguous(), uv.contiguous(), ur.contiguous(),
-        inv_s2.contiguous(), mask.contiguous(), _intrinsics(cam), robust,
+        inv_s2.contiguous(), mask.contiguous(), _intrinsics(cam), robust, split=split,
     )
 
 
-def ba_chi2(poses, X, uv, ur, inv_s2, mask, cam: CameraModel):
+def ba_chi2(poses, X, uv, ur, inv_s2, mask, cam: CameraModel, split=None):
     """Returns (chi2 (C, N) with the 1e9 sentinels, chi2_sum (C,)): the
-    objective of ``ba_normal_equations`` without the blocks."""
+    objective of ``ba_normal_equations`` without the blocks (``split`` as
+    there)."""
     if X.device.type == "cpu":
         return _ba_chi2_plain(poses, X, uv, ur, inv_s2, mask, cam)
     from ..kernels import ba_chi2_cuda
 
     return ba_chi2_cuda(
         poses.contiguous(), X.contiguous(), uv.contiguous(), ur.contiguous(),
-        inv_s2.contiguous(), mask.contiguous(), _intrinsics(cam),
+        inv_s2.contiguous(), mask.contiguous(), _intrinsics(cam), split=split,
     )

@@ -28,7 +28,7 @@ from ..models.kf_database import fetch
 from ..utils.camera import CameraModel
 from .ba_kernels import CHI2_MONO, CHI2_STEREO
 from .lie import hat, inv3x3, orthonormalize_se3, se3_exp
-from .local_ba import schur_ba_core
+from .local_ba import pad_cameras, schur_ba_core
 
 
 def global_bundle_adjustment(
@@ -169,6 +169,7 @@ def run_joint_global_ba(
     max_cams: int = 512,
     initial_prune: float = 0.0,
     unbind_outliers: bool = True,
+    mesh=None,
 ) -> ms.MapState:
     """Joint Schur GBA over every valid keyframe and point: one host read
     of the pools' validity, then the valid keyframes and points are
@@ -180,7 +181,8 @@ def run_joint_global_ba(
     or more than ``max_cams`` keyframes.
 
     ``unbind_outliers`` persists the solver's chi2 pruning by unbinding the
-    pruned observations."""
+    pruned observations.  With ``mesh`` the solve is sharded over the
+    cameras (``schur_ba_core``), C padded to a multiple of the mesh size."""
     kv, pv = fetch([m.kf_valid, m.pt_valid])
     kf_ids = np.nonzero(kv)[0]
     pt_ids = np.nonzero(pv)[0]
@@ -188,7 +190,7 @@ def run_joint_global_ba(
         return m
     dev = m.pt_pos.device
     n_k, n_p = len(kf_ids), len(pt_ids)
-    C = _next_pow2(n_k)
+    C = pad_cameras(_next_pow2(n_k), mesh)
     Pa = _next_pow2(n_p, lo=256)
 
     kf_pad = np.zeros(C, np.int64)
@@ -214,7 +216,7 @@ def run_joint_global_ba(
     pts0[:n_p] = m.pt_pos[pt_ids_t]
     poses, pts, obs_mask, _ = schur_ba_core(
         m.kf_pose_cw[kf_pad], pts0, m.kf_xy[kf_pad], ur, inv_s2, pid, obs_ok,
-        is_fixed, used, cam, phase_iters=phase_iters, initial_prune=initial_prune,
+        is_fixed, used, cam, phase_iters=phase_iters, initial_prune=initial_prune, mesh=mesh,
     )
 
     kf_ids_t = kf_pad[:n_k]

@@ -19,8 +19,13 @@ LocalBundleAdjustment``, src/Optimizer.cc:≈460, and g2o's BlockSolver_6_3):
     schedule stay on the device (``torch.where``), so the 15 iterations read
     nothing back to the host.
 
-The multi-device form (``axis_name``/``n_shards`` in the reference) is
-ROADMAP Queue 1 item 17.
+With ``mesh`` (a ``parallel/mesh`` DeviceMesh of several ranks; the
+reference's ``axis_name``/``n_shards``) the cameras are split over the
+ranks: each rank runs K4 and K5 on its own block of cameras, with the
+whole problem's split of each camera's observations, the per-camera
+outputs are gathered from every rank in rank order, and every rank runs
+the rest unchanged, so that the sharded solve equals the single-device
+one bit for bit on every rank.
 """
 
 from __future__ import annotations
@@ -156,6 +161,7 @@ def schur_ba_core(
     cam: CameraModel,
     phase_iters: Tuple[int, ...] = (5, 10),
     initial_prune: float = 0.0,
+    mesh=None,
 ):
     """The Schur-complement LM engine: 5 robust + 10 plain iterations with
     chi2 pruning after each phase.  ``initial_prune`` > 0 first masks
@@ -164,7 +170,9 @@ def schur_ba_core(
 
     One K4 launch per iteration and one K5 launch per candidate, per
     phase's incumbent cost and per pruning: 15 and 19 with the default
-    schedule.
+    schedule.  With ``mesh`` each rank launches them on its block of the
+    cameras (C must divide by the mesh size), and one gather follows each
+    launch.
 
     Returns (poses (C, 4, 4), pts (P, 3), obs_mask (C, N) inliers,
     pt_in (P,) participating points)."""
@@ -180,15 +188,47 @@ def schur_ba_core(
     # Points observed by at least one used camera.
     pt_in = ms.scatter_max(P, pid, obs_ok.to(torch.int32)) > 0
 
+    if mesh is None:
+        rows, split = slice(None), None
+    else:
+        from ..kernels import ba_split
+        from ..parallel.mesh import all_gather_rows, block_rows
+
+        rows, split = block_rows(C, mesh), ba_split(C, N)
+
     def X_of(pts):
-        return pts[pid].transpose(1, 2)  # (C, 3, N)
+        return pts[pid[rows]].transpose(1, 2)  # (C, 3, N), this rank's cameras
+
+    def k5(poses, pts, mask):
+        """K5 over the cameras: (chi2 (C, N), chi2 sum (C,))."""
+        chi2, total = ba_chi2(poses[rows], X_of(pts), uvT[rows], ur[rows], inv_s2[rows],
+                              mask[rows], cam, split=split)
+        if mesh is None:
+            return chi2, total
+        out = all_gather_rows(torch.cat([chi2, total[:, None]], 1), mesh)
+        # Contiguous copies: the single-device path's layout, so that the
+        # sums over them (the cost's) run in its order on the card.
+        return out[:, :N].contiguous(), out[:, N].contiguous()
+
+    def k4(poses, pts, mask, robust):
+        """K4 over the cameras: (H_cc, b_c, pack)."""
+        H_cc, b_c, pack, _ = ba_normal_equations(
+            poses[rows], X_of(pts), uvT[rows], ur[rows], inv_s2[rows], mask[rows], cam,
+            robust, split=split)
+        if mesh is None:
+            return H_cc, b_c, pack
+        c = H_cc.shape[0]
+        out = all_gather_rows(torch.cat([H_cc.reshape(c, 36), b_c, pack.reshape(c, -1)], 1),
+                              mesh)
+        return (out[:, :36].reshape(C, 6, 6).contiguous(), out[:, 36:42].contiguous(),
+                out[:, 42:].reshape(C, -1, N).contiguous())
 
     def chi2_obs(poses, pts, mask):
-        return ba_chi2(poses, X_of(pts), uvT, ur, inv_s2, mask, cam)[0]
+        return k5(poses, pts, mask)[0]
 
     def cost(poses, pts, mask):
         # The masked total, 1e9 sentinels included.
-        return ba_chi2(poses, X_of(pts), uvT, ur, inv_s2, mask, cam)[1].sum()
+        return k5(poses, pts, mask)[1].sum()
 
     # One observation per (camera, point) pair: the dropped duplicates
     # leave the returned inlier mask.
@@ -199,8 +239,7 @@ def schur_ba_core(
     fix_diag = torch.diag(torch.where(free6, 0.0, 1.0))
 
     def blocks(poses, pts, obs_mask, robust):
-        H_cc, b_c, pack, _ = ba_normal_equations(
-            poses, X_of(pts), uvT, ur, inv_s2, obs_mask, cam, robust)
+        H_cc, b_c, pack = k4(poses, pts, obs_mask, robust)
         # Fixed cameras contribute nothing camera-side (H_cc, b_c, G) and
         # keep their point-side contributions.
         H_cc = H_cc * free_f[:, None, None]
@@ -252,6 +291,13 @@ def schur_ba_core(
     return poses, pts, obs_mask, pt_in
 
 
+def pad_cameras(n: int, mesh) -> int:
+    """``n`` cameras padded to a multiple of the mesh size (one block of
+    cameras per rank)."""
+    k = 1 if mesh is None else mesh.size()
+    return -(-n // k) * k
+
+
 def local_bundle_adjustment(
     m: ms.MapState,
     kf_id,
@@ -261,6 +307,7 @@ def local_bundle_adjustment(
     n_fixed: int = 8,
     phase_iters: Tuple[int, ...] = (5, 10),
     pt_cap: int = 4096,
+    mesh=None,
 ) -> ms.MapState:
     """Local BA around ``kf_id``: poses of the free window keyframes and
     the window's points are optimized, outlier observations unbound.
@@ -271,15 +318,27 @@ def local_bundle_adjustment(
 
     The write-back follows the reference scatter for scatter: where the
     camera set lists ``kf_id`` a second time (a young map's padding), that
-    later, unused copy writes the keyframe's old row and pose back."""
-    cam_ids, is_fixed, used = _gather_problem(m, kf_id, n_local, n_fixed)
+    later, unused copy writes the keyframe's old row and pose back.
 
-    poses0 = m.kf_pose_cw[cam_ids]
-    uv = m.kf_xy[cam_ids]
-    ur = torch.where(used[:, None], m.kf_ur[cam_ids], -1.0)
-    lvl = m.kf_level[cam_ids]
-    pid_raw = m.kf_point[cam_ids]
-    obs_ok = (pid_raw >= 0) & m.kf_kp_valid[cam_ids] & used[:, None]
+    With ``mesh`` the solve is sharded over the cameras (``schur_ba_core``);
+    a window that does not divide by the mesh size is padded with sentinel
+    rows (an id past the pool, fixed and unused: gathered clamped, dropped
+    by the write-back), as the reference pads its distributed window."""
+    cam_ids, is_fixed, used = _gather_problem(m, kf_id, n_local, n_fixed)
+    pad = pad_cameras(cam_ids.shape[0], mesh) - cam_ids.shape[0]
+    if pad:
+        dev = cam_ids.device
+        cam_ids = torch.cat([cam_ids, torch.full((pad,), m.kf_capacity, device=dev)])
+        is_fixed = torch.cat([is_fixed, torch.ones(pad, dtype=torch.bool, device=dev)])
+        used = torch.cat([used, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    gid = cam_ids.clamp(max=m.kf_capacity - 1)
+
+    poses0 = m.kf_pose_cw[gid]
+    uv = m.kf_xy[gid]
+    ur = torch.where(used[:, None], m.kf_ur[gid], -1.0)
+    lvl = m.kf_level[gid]
+    pid_raw = m.kf_point[gid]
+    obs_ok = (pid_raw >= 0) & m.kf_kp_valid[gid] & used[:, None]
     pid = torch.where(obs_ok, pid_raw, 0).long()
     obs_ok = obs_ok & m.pt_valid[pid]
     inv_s2 = inv_sigma2_lut[torch.clamp(lvl, 0, inv_sigma2_lut.shape[0] - 1).long()]
@@ -297,10 +356,10 @@ def local_bundle_adjustment(
 
     poses, pts_l, obs_mask, pt_in_l = schur_ba_core(
         poses0, m.pt_pos[sel], uv, ur, inv_s2, pid_l, obs_ok_l, is_fixed, used, cam,
-        phase_iters,
+        phase_iters, mesh=mesh,
     )
 
-    rows = m.kf_point[cam_ids]
+    rows = m.kf_point[gid]
     new_rows = torch.where(obs_ok_l & ~obs_mask, ms.NO_POINT, rows)
     kf_point = ms.scatter_last(m.kf_point, cam_ids, torch.where(used[:, None], new_rows, rows))
     kf_pose = ms.scatter_last(

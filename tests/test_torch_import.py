@@ -68,6 +68,10 @@ PORT_MODULES = [
     "orbslam2_tpu_torch.utils.viewer",
     "orbslam2_tpu_torch.utils.live",
     "orbslam2_tpu_torch.utils.ar",
+    "orbslam2_tpu_torch.parallel.mesh",
+    "orbslam2_tpu_torch.parallel.distributed",
+    "orbslam2_tpu_torch.parallel.dist_ba",
+    "orbslam2_tpu_torch.parallel.dist_pose_graph",
 ]
 
 TORCH_EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
@@ -163,12 +167,14 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-@pytest.mark.parametrize("kwargs, item", [
+@pytest.mark.parametrize("kwargs, names", [
     (dict(sensor="rgbd", enable_mapping=False, enable_loop_closing=False, mesh=object()),
-     "item 17"),
+     "DeviceMesh"),
 ])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_raise(kwargs, names):
+    # Every option is ported; a mesh that is not a DeviceMesh is refused,
+    # as a foreign mapper or database is.
+    with pytest.raises(TypeError, match=names):
         SlamSystem(_settings(), **kwargs, device="cpu")
 
 
@@ -223,7 +229,7 @@ def test_tracker_refuses_mapper_database_loop_closer():
     assert Tracker(_settings(), database=db, loop_closer=lc, device="cpu").loop_closer is lc
     with pytest.raises(TypeError, match="KeyframeDatabase"):
         LoopCloser(_settings(), object(), fix_scale=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         LoopCloser(_settings(), db, fix_scale=True, mesh=object(), device="cpu")
 
 

@@ -338,5 +338,6 @@ def test_process_keyframe(carried):
 
 
 def test_mapper_refuses_a_mesh(carried):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # Only a DeviceMesh shards the mapper (parallel/mesh.make_mesh).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlm.LocalMapper(carried["ps"], sensor="rgbd", mesh=object())

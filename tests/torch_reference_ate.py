@@ -1,6 +1,7 @@
 """The reference's trajectory error on ``chip_smoke.py``'s sequences.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py            # RGB-D
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --unfused  # RGB-D, unfused
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --stereo   # stereo
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc    # kidnap
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py --reloc-carried
@@ -16,7 +17,9 @@ prints one JSON line: the ATE with mapping on, the keyframes created and
 the per-frame states.  ``chip_smoke.py``'s ATE limits are derived from it.
 
 * RGB-D: the smoke run's bench settings (640x480, 1000 features, 8 levels,
-  128 keyframes, 16384 points) on its 24-frame sequence (seed 0).
+  128 keyframes, 16384 points) on its 24-frame sequence (seed 0);
+  ``--unfused`` tracks with the reference's step-by-step tracker
+  (``use_fused=False``), as ``chip_smoke.py``'s ``unfused`` phase.
 * ``--stereo``: the KITTI operating point of ``examples/run_matrix.py``
   (1241x376, fx 718.856, bf 386.1448, th_depth 35, 2000 features, 8
   levels, 2048 keypoints, 256 keyframes, 65536 points) on the smoke run's
@@ -606,7 +609,7 @@ def main():
         seq = synthetic.make_sequence(cam, n_frames=N_FRAMES, n_points=1500, with_depth=True,
                                       seed=0, radius=0.25, forward=0.5)
     tr = Tracker(s, local_mapper=LocalMapper(s, sensor="stereo" if stereo else "rgbd"),
-                 database=None, loop_closer=None)
+                 database=None, loop_closer=None, use_fused="--unfused" not in sys.argv[1:])
     states = []
     for i in range(N_FRAMES):
         if stereo:
